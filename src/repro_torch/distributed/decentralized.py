@@ -1,0 +1,185 @@
+"""Decentralized training step over a stacked node axis: DCD-PSGD and ECD-PSGD.
+
+The port of the JAX package's ``distributed/decentralized.py`` for the
+paper's two algorithms on flat plans without drops.  State is stacked: every
+leaf has a leading node axis of length ``plan.n`` on one device, and a plan
+shift ``s`` is ``torch.roll(payload, s, dims=0)`` of the ENCODED payload —
+the packed words and scales, as the JAX runtime's collective-permute moves
+them.
+
+* DCD (``_dcd_round``, ``decentralized.py:434``): one replica tree per shift
+  (``rep{s:+d}``), advanced by the received compressed deltas; the invariant
+  ``rep{s} == roll(X, s)`` holds exactly here, because X and every replica
+  are advanced by the same kernel on the same words.
+* ECD (``_ecd_round``, ``decentralized.py:463``): ``tilde_self`` plus one
+  estimate per shift with Algorithm 2's ``(1 - 2/s_t, 2/s_t)`` update; the
+  scalars are float32 values, as in JAX.
+
+Unlike the JAX step, which is pure and maps whole trees, a round here walks
+the leaves in JAX flatten order and finishes each leaf — mix, optimizer
+update, encode (kernel K1), decode into params and replicas (kernel K2) —
+before it starts the next, updating params, replicas, estimates and the
+optimizer moments IN PLACE.  At full width a whole-tree temporary is
+gigabytes; a leaf-at-a-time round holds a few leaf-sized ones.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.gossip import GossipPlan, make_gossip_plan, mix_leaf
+from repro_torch.distributed.wire import Payload, WireFormat, leaf_seed, make_wire_format
+from repro_torch.optim.optimizers import OptState, Optimizer
+from repro_torch.tree import leaf_items, tree_leaves, tree_map
+
+ALGOS = ("dcd", "ecd")
+
+# per-algorithm wire salts of the JAX runtime (decentralized.py:450, :480)
+_SALT = {"dcd": 2, "ecd": 3}
+
+
+@dataclasses.dataclass
+class DistState:
+    params: Any                 # stacked (n, ...) leaves
+    opt: OptState               # stacked moments
+    aux: Dict[str, Any]         # replica / estimate trees keyed by shift
+    step: int
+
+
+def _resolve_plan(plan) -> GossipPlan:
+    return plan if isinstance(plan, GossipPlan) else GossipPlan.ring(int(plan))
+
+
+def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer) -> DistState:
+    """Stack ``params_single`` over the plan's nodes; one replica (DCD) or
+    estimate (ECD) tree per shift, each its own copy of the stacked params."""
+    if algo not in ALGOS:
+        raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
+    plan = _resolve_plan(plan)
+    n = plan.n
+    X = tree_map(lambda p: p.detach().unsqueeze(0).repeat((n,) + (1,) * p.dim()),
+                 params_single)
+
+    def copy():
+        return tree_map(torch.clone, X)
+
+    if algo == "dcd":
+        aux = {f"rep{s:+d}": copy() for s in plan.shift_union}
+    else:
+        aux = {"tilde_self": copy()}
+        aux.update({f"tilde{s:+d}": copy() for s in plan.shift_union})
+    return DistState(params=X, opt=opt.init(X), aux=aux, step=0)
+
+
+def _moment_leaves(opt: OptState, n_leaves: int):
+    """Per-leaf first and second moments, ``None`` where the optimizer keeps none."""
+    return tuple(tree_leaves(t) if t is not None else [None] * n_leaves
+                 for t in (opt.m, opt.v))
+
+
+def _roll_payload(payload: Payload, s: int) -> Payload:
+    return {k: torch.roll(v, s, dims=0) for k, v in payload.items()}
+
+
+def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
+    """Per-node losses and gradients in one backward: node ``i`` evaluates
+    ``loss_fn(params[i], batch[i])``; the nodes share no parameter, so the
+    gradient of the summed losses is every node's own gradient."""
+    leaves = tree_leaves(params)
+    n = leaves[0].shape[0]
+    for l in leaves:
+        l.requires_grad_(True)
+    try:
+        with torch.enable_grad():
+            losses, metrics = [], []
+            for i in range(n):
+                loss_i, met_i = loss_fn(tree_map(lambda l: l[i], params),
+                                        {k: v[i] for k, v in batch.items()})
+                losses.append(loss_i)
+                metrics.append(met_i)
+            losses_t = torch.stack(losses)
+            losses_t.sum().backward()
+        grads = [l.grad for l in leaves]
+    finally:
+        for l in leaves:
+            l.grad = None
+            l.requires_grad_(False)
+    met = {k: torch.stack([m[k].detach() for m in metrics]).mean() for k in metrics[0]}
+    return losses_t.detach(), met, grads
+
+
+def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, plan,
+                         lr_schedule: Callable[[int], float]):
+    """Build ``step(state, batch) -> (state, metrics)``; ``state`` is updated
+    in place and returned.
+
+    ``loss_fn(params_i, batch_i) -> (loss, metrics)`` is the per-node loss;
+    ``batch`` leaves are (n, per_node_batch, ...).  ``wire`` is a
+    :class:`WireFormat` or spec string (``"quant:4"``), ``plan`` a
+    :class:`GossipPlan` or a node count (ring), ``lr_schedule`` a host
+    function of the integer step."""
+    if algo not in ALGOS:
+        raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
+    wire: WireFormat = make_wire_format(wire)
+    plan = make_gossip_plan(_resolve_plan(plan))
+    salt = _SALT[algo]
+
+    def _dcd_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
+        X_items = leaf_items(state.params)
+        m, v = _moment_leaves(state.opt, len(X_items))
+        reps = {s: tree_leaves(state.aux[f"rep{s:+d}"]) for s in plan.shift_union}
+        for li, (_, x) in enumerate(X_items):
+            g, grads[li] = grads[li], None        # free each gradient once used
+            z = mix_leaf(plan, x, {s: reps[s][li] for s in plan.shift_list})
+            z.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
+            del g
+            z.sub_(x)                                            # Z = X_half - X
+            payload = wire.encode(z, leaf_seed(state.step, salt, li))
+            del z
+            # receive side: one fused kernel per leaf and per tree; every
+            # replica advances with the rolled words, so rep{s} == roll(X, s)
+            wire.decode_axpy_(payload, x, 1.0)
+            for s in plan.shift_union:
+                wire.decode_axpy_(_roll_payload(payload, s), reps[s][li], 1.0)
+
+    def _ecd_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
+        s_t = np.float32(state.step + 1)
+        za, zb = float(np.float32(1.0) - np.float32(0.5) * s_t), float(np.float32(0.5) * s_t)
+        blend = float(np.float32(2.0) / s_t)
+        est_decay = float(np.float32(1.0) - np.float32(2.0) / s_t)
+        X_items = leaf_items(state.params)
+        m, v = _moment_leaves(state.opt, len(X_items))
+        tilde_self = tree_leaves(state.aux["tilde_self"])
+        tildes = {s: tree_leaves(state.aux[f"tilde{s:+d}"]) for s in plan.shift_union}
+        for li, (_, x) in enumerate(X_items):
+            g, grads[li] = grads[li], None
+            x_next = mix_leaf(plan, tilde_self[li], {s: tildes[s][li] for s in plan.shift_list})
+            x_next.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
+            del g
+            z = za * x + zb * x_next
+            payload = wire.encode(z, leaf_seed(state.step, salt, li))
+            del z
+            # est_decay*tilde + blend*decode in one fused pass per tree
+            wire.decode_axpy_(payload, tilde_self[li], blend, est_decay)
+            for s in plan.shift_union:
+                wire.decode_axpy_(_roll_payload(payload, s), tildes[s][li], blend, est_decay)
+            x.copy_(x_next)
+
+    round_fn = _dcd_round if algo == "dcd" else _ecd_round
+
+    def step(state: DistState, batch: Dict[str, torch.Tensor]) -> Tuple[DistState, Dict]:
+        losses, metrics, grads = _node_grads(loss_fn, state.params, batch)
+        lr = lr_schedule(state.step)
+        t = state.opt.step + 1
+        with torch.no_grad():
+            round_fn(state, grads, lr, t)
+            state.opt.step = t
+            consensus = sum(torch.sum((l - l.mean(dim=0, keepdim=True)) ** 2)
+                            for l in tree_leaves(state.params))
+        state.step += 1
+        return state, {"loss": losses.mean(), "lr": lr, "consensus": consensus, **metrics}
+
+    return step

@@ -1,0 +1,95 @@
+"""Build the CUDA kernels from the sources in this package, bind with ctypes.
+
+Each ``csrc/*.cu`` file is one shared library with a plain C interface,
+compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/repro_torch/``
+at the repository root (listed in ``.gitignore``).  The library name carries
+a hash of its source, so an edited source rebuilds and an unchanged one is
+loaded as built.  Nothing here runs at import time: the CPU tests import
+every module, and ``nvcc`` is reached only when a wrapper is handed a CUDA
+tensor (or ``chip_smoke.py`` builds ahead).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Dict, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P, _I, _F, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+
+# C signature of every exported launcher: (argtypes), restype is int
+# (the cudaError_t of cudaGetLastError after the launch).
+SIGNATURES = {
+    "quant": {
+        "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
+        "unpack_dequant_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.is_file():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a machine "
+                       "with the CUDA toolkit")
+
+
+def library_path(name: str) -> pathlib.Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def compile_library(name: str) -> Optional[str]:
+    """Compile ``csrc/<name>.cu`` if its library is missing; returns the
+    compiler's log (register and shared-memory use) or None when cached.
+    Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    out = library_path(name)
+    if out.is_file():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library ``name`` (built on first use)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            compile_library(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = list(argtypes)
+                f.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def check_launch(fn_name: str, err: int) -> None:
+    """Raise when a launcher reports a CUDA error (a refused launch never runs
+    and a later synchronize would not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {err} at launch")

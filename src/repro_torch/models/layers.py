@@ -1,0 +1,107 @@
+"""Shared neural building blocks: plain functions on tensors plus inits.
+
+The port of the JAX package's ``models/layers.py`` (dense decoder slice).
+Compute runs in bf16 with float32 master weights (``layers.py:13``): each
+function casts a weight to the activation dtype at use, and the norms, RoPE
+and the cross-entropy work in float32, as the JAX versions do.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
+               scale: Optional[float] = None, lead: tuple = ()) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn(lead + (d_in, d_out), generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(scale)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...i,io->...o", x, w.astype(x.dtype))``."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, *, device) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen, device=device,
+                       dtype=torch.float32).mul_(0.02)
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table.to(COMPUTE_DTYPE)[tokens]
+
+
+def rmsnorm_init(d: int, *, device, lead: tuple = ()) -> torch.Tensor:
+    return torch.ones(lead + (d,), dtype=torch.float32, device=device)
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    h = x.to(torch.float32)
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * g).to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLP
+
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *, device, lead: tuple = ()) -> Params:
+    # the draw order follows the JAX key split (wi, wg, wo); the values differ
+    return {
+        "wi": dense_init(gen, d, d_ff, device=device, lead=lead),
+        "wg": dense_init(gen, d, d_ff, device=device, lead=lead),
+        "wo": dense_init(gen, d_ff, d, device=device, lead=lead),
+    }
+
+
+def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return dense(F.silu(dense(x, p["wg"])) * dense(x, p["wi"]), p["wo"])
+
+
+# ----------------------------------------------------------------- RoPE
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                              # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs             # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                               # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- loss
+
+def chunked_softmax_xent(hidden: torch.Tensor, head_w: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None, chunk: int = 512) -> torch.Tensor:
+    """Mean token cross-entropy over sequence chunks of at most ``chunk``
+    positions, so only (B, chunk, V) f32 logits live at once.  The logits
+    span every column of ``head_w`` — the padded vocab, as in the JAX
+    package."""
+    B, S, _ = hidden.shape
+    chunk = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        hc, yc, mc = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk]
+        logits = dense(hc, head_w).to(torch.float32)                   # (B, c, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None].to(torch.int64))[..., 0]
+        total = total + torch.sum((logz - gold) * mc)
+        count = count + torch.sum(mc)
+    return total / torch.clamp(count, min=1.0)

@@ -8,20 +8,29 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
 1. build   — compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    (one process per source, started together) into ``build/repro_torch/``.
 2. kernels — each kernel against its plain PyTorch version on the card at
-   the training path's shapes (the ``lm_head`` fold 802,816 x 1024, the
-   ``wk`` fold 16,384 x 512, and a small ragged case): words, scales and
-   floats must be bit-equal.  Each is timed with CUDA events beside its
-   bound (bytes moved over 3.35 TB/s, or f32 operations over 67 TFLOP/s,
-   whichever is larger) and beside its plain version.
-3. train dcd — granite-3-2b at full width with its depth cut to one layer,
-   8 nodes stacked on the card, ring, ``quant:4``, 3 steps through
-   ``repro_torch.launch.train.run_training``; the kernel launch counts are
-   zeroed just before and read just after (12 K1 and 36 K2 launches a step),
-   and the replica invariant ``rep{s} == roll(X, s)`` is checked.
-4. train ecd — the same for 2 steps; ``tilde{s} == roll(tilde_self, s)``.
-5. profile — device time by kernel over a further 2-step DCD run.
-6. reference — a reduced granite DCD run on the card against the same run
-   on the CPU (the kernels' plain versions), same params and batches.
+   the training path's shapes: for ``quant:4`` (K1, K2) and ``sign`` (K5a,
+   K5b) the ``lm_head`` fold 802,816 x 1024 and the ``wk`` fold 16,384 x 512,
+   for ``sparse`` (K6, K6c) the ``lm_head`` fold 6,324,224 x 128 and the
+   ``wk`` fold 65,536 x 128, and a small ragged case; rows with all zeros,
+   -0.0, a NaN and exact ties.  Words, indices, values, scales and floats
+   must be bit-equal (a NaN matching any NaN).  Each is timed with CUDA
+   events beside its bound (bytes moved over 3.35 TB/s, or operations over
+   67 TFLOP/s, whichever is larger) and beside its plain version.
+3. train   — granite-3-2b at full width with its depth cut to one layer,
+   8 nodes stacked on the card, ring, through
+   ``repro_torch.launch.train.run_training``: DCD and ECD over ``quant:4``,
+   CHOCO (gamma 0.5) and DeepSqueeze over ``sign``, CHOCO over
+   ``sparse:0.05:topk``.  Each run's kernel launch counts are zeroed just
+   before it and read just after; each kernel of the run's wire must show
+   its launches a step (12 sends, 36 receives for DCD, ECD and CHOCO, 48 for
+   DeepSqueeze) and every other kernel none.  The shared-state invariants
+   ``rep{s} == roll(X, s)`` (DCD), ``tilde{s} == roll(tilde_self, s)`` (ECD)
+   and ``hat{s} == roll(hat_self, s)`` (CHOCO) are checked.
+4. profile — device time by kernel over a further 2-step DCD ``quant:4``
+   run and a 2-step CHOCO ``sign`` run.
+5. reference — reduced granite runs (DCD ``quant:4``, CHOCO ``sign``) on the
+   card against the same runs on the CPU (the kernels' plain versions),
+   same params and batches.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -89,14 +98,70 @@ def bound(nbytes: int, f32_ops: int):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernels(torch, q, ref, bits: int = 4) -> list:
-    """Kernel vs plain version at the training path's shapes; returns the
-    records of the kernels JSON line (launches filled in later)."""
+# kernel name -> (CUDA source, TPU kernel it replaces)
+KERNELS = {
+    "quantize_pack_2d": ("src/repro_torch/kernels/csrc/quant.cu",
+                         "src/repro/kernels/quant.py:284"),
+    "unpack_dequant_axpy_2d": ("src/repro_torch/kernels/csrc/quant.cu",
+                               "src/repro/kernels/quant.py:367"),
+    "sign_pack_2d": ("src/repro_torch/kernels/csrc/sign.cu", "src/repro/kernels/quant.py:612"),
+    "unpack_sign_axpy_2d": ("src/repro_torch/kernels/csrc/sign.cu",
+                            "src/repro/kernels/quant.py:648"),
+    "sparse_select_pack_2d": ("src/repro_torch/kernels/csrc/sparse.cu",
+                              "src/repro/kernels/quant.py:503"),
+    "sparse_scatter_axpy_2d": ("src/repro_torch/kernels/csrc/sparse.cu",
+                               "src/repro/kernels/quant.py:684"),
+}
+# the CUDA symbols of those kernels, for the profile
+KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "sign_pack_kernel",
+                  "unpack_sign_axpy_kernel", "sparse_select_pack_kernel",
+                  "sparse_scatter_axpy_kernel")
+
+
+def max_abs_err(a, b) -> float:
+    """max |a - b| where neither is NaN."""
+    ok = ~(a.isnan() | b.isnan())
+    d = (a.float() - b.float()).abs()[ok]
+    return d.max().item() if d.numel() else 0.0
+
+
+def edge_rows(x, ties: bool):
+    """All-zero row, -0.0 entries, a NaN, and (for selection) exact ties."""
+    x[0].zero_()
+    x[1, :7] = -0.0
+    x[2, 5] = float("nan")
+    if ties:
+        x[3, :] = 0.75
+        x[3, 1::2] = -0.75
+        x[4, 10:40] = 0.5
+    return x
+
+
+def check(ref, rec: dict, name: str, label: str, got, want, what: str) -> None:
+    """Kernel outputs against their plain version's: bit-equal
+    (``ref.same_bits``), or fail."""
+    ok = all(ref.same_bits(g, w) for g, w in zip(got, want))
+    err = max(max_abs_err(g, w) for g, w in zip(got, want) if g.is_floating_point()) \
+        if any(g.is_floating_point() for g in got) else 0.0
+    rec[name]["err"] = max(rec[name]["err"], err)
+    log(f"kernel {name} {label} ({what}): bit_equal={ok} max_abs_err={err}")
+    assert ok, f"{name} disagrees with its plain version at {label} ({what})"
+
+
+def log_times(rec: dict, names) -> None:
+    for name in names:
+        r = rec[name]
+        log(f"time {name} lm_head: kernel {r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), plain {r['plain_ms']:.2f} ms")
+
+
+def phase_kernels(torch, q, ref, rec: dict, bits: int = 4) -> None:
+    """K1/K2 vs plain version at the ``quant:4`` path's shapes; fills
+    ``rec`` with errors, times and bounds."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     shapes = [("lm_head", 802816, 1024), ("wk", 16384, 512), ("ragged", 37, 256)]
-    rec = {"quantize_pack_2d": {"err": 0.0}, "unpack_dequant_axpy_2d": {"err": 0.0}}
     for label, rows, cols in shapes:
         x = torch.randn((rows, cols), generator=gen, device=dev) * 0.02
         x[0].zero_()                                   # all-zero row: scale 0 -> 1
@@ -104,28 +169,16 @@ def phase_kernels(torch, q, ref, bits: int = 4) -> list:
         seed = 0x9E3779B9 ^ rows
         words, scale = q.quantize_pack_2d(x, seed, bits=bits)
         torch.cuda.synchronize()
-        w_ref, s_ref = ref.quantize_pack_2d_ref(x, seed, bits=bits)
-        ok_w = torch.equal(words, w_ref)
-        ok_s = torch.equal(scale, s_ref)
-        err = (scale - s_ref).abs().max().item()
-        rec["quantize_pack_2d"]["err"] = max(rec["quantize_pack_2d"]["err"], err)
-        log(f"kernel quantize_pack_2d {label} ({rows}x{cols}, {bits}-bit): "
-            f"words_equal={ok_w} scales_equal={ok_s}")
-        assert ok_w and ok_s, f"K1 disagrees with its plain version at {label}"
-        del w_ref, s_ref
+        check(ref, rec, "quantize_pack_2d", label, (words, scale),
+              ref.quantize_pack_2d_ref(x, seed, bits=bits), f"{rows}x{cols}, {bits}-bit")
         acc = torch.randn((rows, cols), generator=gen, device=dev)
         for aw, w in ((1.0, 1.0), (-1.0, 2.0)):
             out = q.unpack_dequant_axpy_2d(words, scale, acc, bits=bits, weight=w, acc_weight=aw)
             torch.cuda.synchronize()
-            o_ref = ref.unpack_dequant_axpy_2d_ref(words, scale, acc, bits=bits,
-                                                   weight=w, acc_weight=aw)
-            ok = torch.equal(out, o_ref)
-            err = (out - o_ref).abs().max().item()
-            rec["unpack_dequant_axpy_2d"]["err"] = max(rec["unpack_dequant_axpy_2d"]["err"], err)
-            log(f"kernel unpack_dequant_axpy_2d {label} (aw={aw}, w={w}): "
-                f"bit_equal={ok} max_abs_err={err}")
-            assert ok, f"K2 disagrees with its plain version at {label} (aw={aw}, w={w})"
-            del out, o_ref
+            check(ref, rec, "unpack_dequant_axpy_2d", label, (out,),
+                  (ref.unpack_dequant_axpy_2d_ref(words, scale, acc, bits=bits, weight=w,
+                                                  acc_weight=aw),), f"aw={aw}, w={w}")
+            del out
         if label == "lm_head":
             W = words.shape[1]
             out = torch.empty_like(acc)
@@ -142,20 +195,103 @@ def phase_kernels(torch, q, ref, bits: int = 4) -> list:
             rec["unpack_dequant_axpy_2d"].update(
                 ms=k2, plain_ms=k2p,
                 bound=bound(rows * W * 4 + rows * 4 + 2 * n * 4, 3 * n))
-            for name in rec:
-                r = rec[name]
-                log(f"time {name} lm_head: kernel {r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-                    f"({r['bound'][1]}), plain {r['plain_ms']:.2f} ms")
+            log_times(rec, ("quantize_pack_2d", "unpack_dequant_axpy_2d"))
             del out
         del x, words, scale, acc
         torch.cuda.empty_cache()
-    src = "src/repro_torch/kernels/csrc/quant.cu"
-    replaces = {"quantize_pack_2d": "src/repro/kernels/quant.py:284",
-                "unpack_dequant_axpy_2d": "src/repro/kernels/quant.py:367"}
-    return [{"name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-             "launches": 0, "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None}
-            for name, r in rec.items()]
+
+
+def phase_kernels_sign(torch, q, ref, rec: dict) -> None:
+    """K5a (both scale modes) and K5b vs plain version at the ``sign`` path's
+    shapes (block 1024, the wk leaf's 512)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    for label, rows, cols in [("lm_head", 802816, 1024), ("wk", 16384, 512),
+                              ("ragged", 37, 384)]:
+        x = edge_rows(torch.randn((rows, cols), generator=gen, device=dev) * 0.02, ties=True)
+        for mode in ("mean", "l2"):
+            words, scale = q.sign_pack_2d(x, scale_mode=mode)
+            torch.cuda.synchronize()
+            check(ref, rec, "sign_pack_2d", label, (words, scale),
+                  ref.sign_pack_2d_ref(x, scale_mode=mode), f"{rows}x{cols}, {mode}")
+        acc = torch.randn((rows, cols), generator=gen, device=dev)
+        for aw, w in ((1.0, 1.0), (1.0, -1.0)):
+            out = q.unpack_sign_axpy_2d(words, scale, acc, weight=w, acc_weight=aw)
+            torch.cuda.synchronize()
+            check(ref, rec, "unpack_sign_axpy_2d", label, (out,),
+                  (ref.unpack_sign_axpy_2d_ref(words, scale, acc, weight=w, acc_weight=aw),),
+                  f"aw={aw}, w={w}")
+            del out
+        if label == "lm_head":
+            out = torch.empty_like(acc)
+            n, W = rows * cols, words.shape[1]
+            rec["sign_pack_2d"].update(
+                ms=time_ms(torch, lambda: q.sign_pack_2d(x), 10),
+                plain_ms=time_ms(torch, lambda: ref.sign_pack_2d_ref(x), 2, 1),
+                bound=bound(n * 4 + rows * W * 4 + rows * 4, 3 * n))
+            rec["unpack_sign_axpy_2d"].update(
+                ms=time_ms(torch, lambda: q.unpack_sign_axpy_2d(
+                    words, scale, acc, weight=1.0, acc_weight=1.0, out=out), 10),
+                plain_ms=time_ms(torch, lambda: ref.unpack_sign_axpy_2d_ref(
+                    words, scale, acc, weight=1.0, acc_weight=1.0), 2, 1),
+                bound=bound(rows * W * 4 + rows * 4 + 2 * n * 4, 3 * n))
+            log_times(rec, ("sign_pack_2d", "unpack_sign_axpy_2d"))
+            del out
+        del x, words, scale, acc
+        torch.cuda.empty_cache()
+
+
+def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
+    """K6 (topk and randk) and K6c vs plain version at the ``sparse`` path's
+    shapes (block 128); f16 values and p = 0.25 off the lm_head fold."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    seed = 0x51A7E
+    for label, rows, cols in [("lm_head", 6324224, 128), ("wk", 65536, 128),
+                              ("ragged", 37, 384)]:
+        x = edge_rows(torch.randn((rows, cols), generator=gen, device=dev) * 0.02, ties=True)
+        cases = [(0.05, torch.float32)]
+        if label != "lm_head":
+            cases.append((0.25, torch.float16))
+        for mode in ("topk", "randk"):
+            for p, vdt in cases:
+                got = q.sparse_select_pack_2d(x, seed, p=p, mode=mode, value_dtype=vdt)
+                torch.cuda.synchronize()
+                check(ref, rec, "sparse_select_pack_2d", label, got,
+                      ref.sparse_select_pack_2d_ref(x, seed, p=p, mode=mode, value_dtype=vdt),
+                      f"{rows}x{cols}, {mode}, p={p}, {vdt}")
+                del got
+        vals, idx = q.sparse_select_pack_2d(x, seed, p=0.05, mode="topk")
+        acc = torch.randn((rows, cols), generator=gen, device=dev)
+        for aw, w in ((1.0, 1.0), (1.0, -1.0)):
+            out = q.sparse_scatter_axpy_2d(vals, idx, acc, weight=w, acc_weight=aw)
+            torch.cuda.synchronize()
+            check(ref, rec, "sparse_scatter_axpy_2d", label, (out,),
+                  (ref.sparse_scatter_axpy_2d_ref(vals, idx, acc, weight=w, acc_weight=aw),),
+                  f"aw={aw}, w={w}")
+            del out
+        if label == "lm_head":
+            out = torch.empty_like(acc)
+            n, k, W = rows * cols, vals.shape[1], idx.shape[1]
+            rec["sparse_select_pack_2d"].update(
+                ms=time_ms(torch, lambda: q.sparse_select_pack_2d(x, seed, p=0.05, mode="topk"),
+                           10),
+                plain_ms=time_ms(torch, lambda: ref.sparse_select_pack_2d_ref(
+                    x, seed, p=0.05, mode="topk"), 2, 1),
+                # the selection: one key a lane, then k passes of cols comparisons
+                bound=bound(n * 4 + rows * k * 4 + rows * W * 4, rows * cols * (k + 1)))
+            rec["sparse_scatter_axpy_2d"].update(
+                ms=time_ms(torch, lambda: q.sparse_scatter_axpy_2d(
+                    vals, idx, acc, weight=1.0, acc_weight=1.0, out=out), 10),
+                plain_ms=time_ms(torch, lambda: ref.sparse_scatter_axpy_2d_ref(
+                    vals, idx, acc, weight=1.0, acc_weight=1.0), 2, 1),
+                bound=bound(rows * k * 4 + rows * W * 4 + 2 * n * 4, 3 * n))
+            log_times(rec, ("sparse_select_pack_2d", "sparse_scatter_axpy_2d"))
+            del out
+        del x, vals, idx, acc
+        torch.cuda.empty_cache()
 
 
 def max_shift_residual(torch, tree_leaves, base, others: dict) -> float:
@@ -167,14 +303,29 @@ def max_shift_residual(torch, tree_leaves, base, others: dict) -> float:
     return worst
 
 
-def phase_train(torch, algo: str, steps: int, q) -> dict:
+# (algo, wire, steps, {kernel: launches a step}); the other kernels launch none
+TRAIN_RUNS = (
+    ("dcd", "quant:4", 3, {"quantize_pack_2d": 12, "unpack_dequant_axpy_2d": 36}),
+    ("ecd", "quant:4", 2, {"quantize_pack_2d": 12, "unpack_dequant_axpy_2d": 36}),
+    ("choco", "sign", 2, {"sign_pack_2d": 12, "unpack_sign_axpy_2d": 36}),
+    ("deepsqueeze", "sign", 2, {"sign_pack_2d": 12, "unpack_sign_axpy_2d": 48}),
+    ("choco", "sparse:0.05:topk", 2, {"sparse_select_pack_2d": 12,
+                                      "sparse_scatter_axpy_2d": 36}),
+)
+# algo -> (the tree every shifted copy tracks, prefix of the shifted copies)
+INVARIANTS = {"dcd": (None, "rep"), "ecd": ("tilde_self", "tilde"),
+              "choco": ("hat_self", "hat")}
+
+
+def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.train import TrainConfig, run_training
     from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
-    tc = TrainConfig(arch="granite-3-2b", algo=algo, wire="quant:4", topology="ring",
+    tc = TrainConfig(arch="granite-3-2b", algo=algo, wire=wire, gamma=0.5, topology="ring",
                      n_nodes=8, steps=steps, log_every=1, reduced=False)
+    tag = f"{algo} {wire}"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     q.reset_launch_counts()
@@ -184,38 +335,36 @@ def phase_train(torch, algo: str, steps: int, q) -> dict:
     state = hist["state"]
     n_leaves = len(tree_leaves(state.params))
     per_node = sum(l[0].numel() for l in tree_leaves(state.params))
-    log(f"train {algo}: granite-3-2b d_model={cfg.d_model} n_layers={cfg.n_layers} "
+    log(f"train {tag}: granite-3-2b d_model={cfg.d_model} n_layers={cfg.n_layers} "
         f"vocab_padded={cfg.vocab_padded} params/node={per_node} leaves={n_leaves} "
         f"nodes={tc.n_nodes} seq={tc.seq_len} global_batch={tc.global_batch}")
-    log(f"train {algo}: losses={hist['losses']} consensus={hist['consensus']}")
-    log(f"train {algo}: step_s={[round(s, 4) for s in hist['step_s']]} "
+    log(f"train {tag}: losses={hist['losses']} consensus={hist['consensus']}")
+    log(f"train {tag}: step_s={[round(s, 4) for s in hist['step_s']]} "
         f"peak_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
-    log(f"train {algo}: launches {counts}")
+    log(f"train {tag}: launches {counts}")
     assert all(math.isfinite(l) for l in hist["losses"]), hist["losses"]
     assert all(math.isfinite(c) for c in hist["consensus"]), hist["consensus"]
-    shifts = (-1, 1)
-    assert counts["quantize_pack_2d"] == n_leaves * steps == 12 * steps, counts
-    assert counts["unpack_dequant_axpy_2d"] == n_leaves * (1 + len(shifts)) * steps, counts
-    if algo == "dcd":
-        resid = max_shift_residual(torch, tree_leaves, state.params,
-                                   {s: state.aux[f"rep{s:+d}"] for s in shifts})
-        what = "rep{s} == roll(X, s)"
-    else:
-        resid = max_shift_residual(torch, tree_leaves, state.aux["tilde_self"],
-                                   {s: state.aux[f"tilde{s:+d}"] for s in shifts})
-        what = "tilde{s} == roll(tilde_self, s)"
-    log(f"train {algo}: invariant {what}: max_abs_diff={resid}")
-    assert resid <= INVARIANT_LIMIT, resid
+    assert n_leaves == 12, n_leaves
+    want = {name: per_step.get(name, 0) * steps for name in counts}
+    assert counts == want, (counts, want)
+    if algo in INVARIANTS:
+        base_key, prefix = INVARIANTS[algo]
+        base = state.params if base_key is None else state.aux[base_key]
+        resid = max_shift_residual(torch, tree_leaves, base,
+                                   {s: state.aux[f"{prefix}{s:+d}"] for s in (-1, 1)})
+        log(f"train {tag}: invariant {prefix}{{s}} == roll({base_key or 'X'}, s): "
+            f"max_abs_diff={resid}")
+        assert resid <= INVARIANT_LIMIT, resid
     del hist, state
     torch.cuda.empty_cache()
     return counts
 
 
-def phase_profile(torch, steps: int = 2) -> None:
-    """Where a DCD step's device time goes: ``torch.profiler`` over ``steps``
+def phase_profile(torch, algo: str, wire: str, steps: int = 2) -> None:
+    """Where a step's device time goes: ``torch.profiler`` over ``steps``
     steady steps (batch generation included, as in ``run_training``) of the
-    train-dcd configuration, after one unprofiled warm-up step and outside
-    the counted runs."""
+    train configuration, after one unprofiled warm-up step and outside the
+    counted runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,9 +378,9 @@ def phase_profile(torch, steps: int = 2) -> None:
     cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
     model = build_model(cfg)
     opt = adamw(weight_decay=0.01)
-    step = make_dist_train_step(model.loss, "dcd", opt, "quant:4", 8,
-                                linear_warmup_cosine(3e-3, 20, 300))
-    state = init_dist_state("dcd", model.init(0, device="cuda"), 8, opt)
+    step = make_dist_train_step(model.loss, algo, opt, wire, 8,
+                                linear_warmup_cosine(3e-3, 20, 300), gamma=0.5)
+    state = init_dist_state(algo, model.init(0, device="cuda"), 8, opt)
     dc = DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=32, n_shards=8, seed=0)
     state, _ = step(state, stacked_node_batches(dc, 0, device="cuda"))
     torch.cuda.synchronize()
@@ -250,18 +399,17 @@ def phase_profile(torch, steps: int = 2) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
-    log(f"profile dcd ({steps} steady steps): wall {wall:.3f} s, device busy {busy:.3f} s, "
-        f"idle share {1 - busy / wall:.3f}")
+    log(f"profile {algo} {wire} ({steps} steady steps): wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
     ranked = sorted(kernels, key=dev_us, reverse=True)
-    ours = [e for e in ranked if "quantize_pack_kernel" in e.key
-            or "unpack_dequant_axpy_kernel" in e.key]
+    ours = [e for e in ranked if any(sym in e.key for sym in KERNEL_SYMBOLS)]
     for e in ranked[:12] + [e for e in ours if e not in ranked[:12]]:
         log(f"profile   {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} launches  {e.key[:100]}")
 
 
-def phase_reference(torch) -> None:
-    """Reduced granite, 4 nodes, DCD quant:4, 2 steps: the card (kernels)
-    against the CPU (plain versions) from the same params and batches."""
+def phase_reference(torch, algo: str, wire: str) -> None:
+    """Reduced granite, 4 nodes, 2 steps: the card (kernels) against the CPU
+    (plain versions) from the same params and batches."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, stacked_node_batches
     from repro_torch.distributed.decentralized import init_dist_state, make_dist_train_step
@@ -278,8 +426,8 @@ def phase_reference(torch) -> None:
     out, lr = {}, 0.05
     for dev in ("cpu", "cuda"):
         opt = sgd()
-        step = make_dist_train_step(model.loss, "dcd", opt, "quant:4", 4, constant(lr))
-        state = init_dist_state("dcd", tree_map(lambda p: p.to(dev), params_cpu), 4, opt)
+        step = make_dist_train_step(model.loss, algo, opt, wire, 4, constant(lr), gamma=0.5)
+        state = init_dist_state(algo, tree_map(lambda p: p.to(dev), params_cpu), 4, opt)
         losses = []
         for b in batches:
             state, met = step(state, {k: v.to(dev) for k, v in b.items()})
@@ -290,12 +438,13 @@ def phase_reference(torch) -> None:
     d_gpu = torch.cat([(a - p).flatten() for a, p in zip(out["cuda"][1], x0)])
     dl = max(abs(a - b) for a, b in zip(out["cpu"][0], out["cuda"][0]))
     rel = ((d_gpu - d_cpu).norm() / d_cpu.norm()).item()
-    log(f"reference: reduced granite dcd quant:4 sgd, cuda vs cpu: losses {out['cuda'][0]} vs "
-        f"{out['cpu'][0]}, max loss diff {dl:.3e}, relative L2 error of the param change "
+    log(f"reference: reduced granite {algo} {wire} sgd, cuda vs cpu: losses {out['cuda'][0]} "
+        f"vs {out['cpu'][0]}, max loss diff {dl:.3e}, relative L2 error of the param change "
         f"{rel:.3e}")
     # bf16 matmuls round differently on the two devices, so losses agree to
     # bf16 accuracy; 4-bit stochastic rounding turns those ~1% gradient
-    # differences into occasional one-level code flips of the payload
+    # differences into occasional one-level code flips of the payload, and
+    # the sign codec into sign flips of near-zero differences
     assert dl <= 1e-3 and rel <= 0.2, (dl, rel)
 
 
@@ -316,15 +465,26 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     phase_build(build)
-    kernels = phase_kernels(torch, q, ref)
-    totals = {k["name"]: 0 for k in kernels}
-    for algo, steps in (("dcd", 3), ("ecd", 2)):
-        for name, c in phase_train(torch, algo, steps, q).items():
+    assert sorted(KERNELS) == sorted(q.launch_counts()), sorted(q.launch_counts())
+    rec = {name: {"err": 0.0} for name in KERNELS}
+    phase_kernels(torch, q, ref, rec)
+    phase_kernels_sign(torch, q, ref, rec)
+    phase_kernels_sparse(torch, q, ref, rec)
+    totals = {name: 0 for name in KERNELS}
+    for algo, wire, steps, per_step in TRAIN_RUNS:
+        for name, c in phase_train(torch, algo, wire, steps, per_step, q).items():
             totals[name] += c
-    for k in kernels:
-        k["launches"] = totals[k["name"]]
-    phase_profile(torch)
-    phase_reference(torch)
+    phase_profile(torch, "dcd", "quant:4")
+    phase_profile(torch, "choco", "sign")
+    phase_reference(torch, "dcd", "quant:4")
+    phase_reference(torch, "choco", "sign")
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": totals[name], "max_abs_err": rec[name]["err"],
+                "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
+                "bound_ms": rec[name]["bound"][0], "bound_by": rec[name]["bound"][1],
+                "library_ms": None}
+               for name, (src, replaces) in KERNELS.items()]
+    assert all(k["launches"] > 0 for k in kernels), totals
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(gpu_name_and_power())
     print(json.dumps({"kernels": kernels}))

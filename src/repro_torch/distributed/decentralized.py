@@ -1,11 +1,12 @@
-"""Decentralized training step over a stacked node axis: DCD-PSGD and ECD-PSGD.
+"""Decentralized training step over a stacked node axis: DCD-PSGD, ECD-PSGD,
+CHOCO-SGD and DeepSqueeze.
 
 The port of the JAX package's ``distributed/decentralized.py`` for the
-paper's two algorithms on flat plans without drops.  State is stacked: every
-leaf has a leading node axis of length ``plan.n`` on one device, and a plan
-shift ``s`` is ``torch.roll(payload, s, dims=0)`` of the ENCODED payload —
-the packed words and scales, as the JAX runtime's collective-permute moves
-them.
+paper's two algorithms and the two error-feedback algorithms on flat plans
+without drops.  State is stacked: every leaf has a leading node axis of
+length ``plan.n`` on one device, and a plan shift ``s`` is
+``torch.roll(payload, s, dims=0)`` of the ENCODED payload — the packed
+words and scales, as the JAX runtime's collective-permute moves them.
 
 * DCD (``_dcd_round``, ``decentralized.py:434``): one replica tree per shift
   (``rep{s:+d}``), advanced by the received compressed deltas; the invariant
@@ -14,6 +15,14 @@ them.
 * ECD (``_ecd_round``, ``decentralized.py:463``): ``tilde_self`` plus one
   estimate per shift with Algorithm 2's ``(1 - 2/s_t, 2/s_t)`` update; the
   scalars are float32 values, as in JAX.
+* CHOCO (``_choco_round``, ``decentralized.py:496``): ``hat_self`` plus one
+  estimate per shift, advanced by the received compressed differences
+  ``Z = X_half - hat_self``; mixing runs on the estimates with consensus
+  stepsize ``gamma``.  ``hat{s} == roll(hat_self, s)`` holds exactly here.
+* DeepSqueeze (``_deepsqueeze_round``, ``decentralized.py:532``): ``err_self``
+  only.  The error-compensated model value ``V = X_half + err`` is encoded,
+  the residual ``V - dec(V)`` is kept, and the decoded payloads are mixed:
+  ``X = X_half + (mix(D) - D_self)``.  The receive side is stateless.
 
 Unlike the JAX step, which is pure and maps whole trees, a round here walks
 the leaves in JAX flatten order and finishes each leaf — mix, optimizer
@@ -35,10 +44,11 @@ from repro_torch.distributed.wire import Payload, WireFormat, leaf_seed, make_wi
 from repro_torch.optim.optimizers import OptState, Optimizer
 from repro_torch.tree import leaf_items, tree_leaves, tree_map
 
-ALGOS = ("dcd", "ecd")
+ALGOS = ("dcd", "ecd", "choco", "deepsqueeze")
 
-# per-algorithm wire salts of the JAX runtime (decentralized.py:450, :480)
-_SALT = {"dcd": 2, "ecd": 3}
+# per-algorithm wire salts of the JAX runtime (decentralized.py:450, :480,
+# :507, :549)
+_SALT = {"dcd": 2, "ecd": 3, "choco": 4, "deepsqueeze": 5}
 
 
 @dataclasses.dataclass
@@ -55,7 +65,8 @@ def _resolve_plan(plan) -> GossipPlan:
 
 def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer) -> DistState:
     """Stack ``params_single`` over the plan's nodes; one replica (DCD) or
-    estimate (ECD) tree per shift, each its own copy of the stacked params."""
+    estimate (ECD, CHOCO) tree per shift, each its own copy of the stacked
+    params, or DeepSqueeze's zero residual."""
     if algo not in ALGOS:
         raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
     plan = _resolve_plan(plan)
@@ -68,9 +79,14 @@ def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer) -> Dist
 
     if algo == "dcd":
         aux = {f"rep{s:+d}": copy() for s in plan.shift_union}
-    else:
+    elif algo == "ecd":
         aux = {"tilde_self": copy()}
         aux.update({f"tilde{s:+d}": copy() for s in plan.shift_union})
+    elif algo == "choco":
+        aux = {"hat_self": copy()}
+        aux.update({f"hat{s:+d}": copy() for s in plan.shift_union})
+    else:
+        aux = {"err_self": tree_map(torch.zeros_like, X)}
     return DistState(params=X, opt=opt.init(X), aux=aux, step=0)
 
 
@@ -112,17 +128,22 @@ def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
 
 
 def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, plan,
-                         lr_schedule: Callable[[int], float]):
+                         lr_schedule: Callable[[int], float], gamma: float = 0.5):
     """Build ``step(state, batch) -> (state, metrics)``; ``state`` is updated
     in place and returned.
 
     ``loss_fn(params_i, batch_i) -> (loss, metrics)`` is the per-node loss;
     ``batch`` leaves are (n, per_node_batch, ...).  ``wire`` is a
-    :class:`WireFormat` or spec string (``"quant:4"``), ``plan`` a
-    :class:`GossipPlan` or a node count (ring), ``lr_schedule`` a host
-    function of the integer step."""
+    :class:`WireFormat` or spec string (``"quant:4"``, ``"sign"``), ``plan``
+    a :class:`GossipPlan` or a node count (ring), ``lr_schedule`` a host
+    function of the integer step.  ``gamma`` is CHOCO's consensus stepsize
+    (``X <- X_half + gamma*(mix(hat) - hat_self)``), in (0, 1]; the other
+    algorithms ignore it."""
     if algo not in ALGOS:
         raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
+    if not 0.0 < gamma <= 1.0:
+        raise ValueError(f"CHOCO consensus stepsize gamma={gamma} must lie in (0, 1]")
+    gamma32 = float(np.float32(gamma))
     wire: WireFormat = make_wire_format(wire)
     plan = make_gossip_plan(_resolve_plan(plan))
     salt = _SALT[algo]
@@ -168,7 +189,52 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 wire.decode_axpy_(_roll_payload(payload, s), tildes[s][li], blend, est_decay)
             x.copy_(x_next)
 
-    round_fn = _dcd_round if algo == "dcd" else _ecd_round
+    def _choco_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
+        X_items = leaf_items(state.params)
+        m, v = _moment_leaves(state.opt, len(X_items))
+        hat_self = tree_leaves(state.aux["hat_self"])
+        hats = {s: tree_leaves(state.aux[f"hat{s:+d}"]) for s in plan.shift_union}
+        for li, (_, x) in enumerate(X_items):
+            g, grads[li] = grads[li], None
+            x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
+            del g
+            z = x - hat_self[li]                                 # Z = X_half - hat_self
+            payload = wire.encode(z, leaf_seed(state.step, salt, li))
+            del z
+            # every node decodes the words it sent, so hat_self stays equal
+            # to each neighbour's hat{s} of it: hat{s} == roll(hat_self, s)
+            wire.decode_axpy_(payload, hat_self[li], 1.0)
+            for s in plan.shift_union:
+                wire.decode_axpy_(_roll_payload(payload, s), hats[s][li], 1.0)
+            del payload
+            mixed = mix_leaf(plan, hat_self[li], {s: hats[s][li] for s in plan.shift_list})
+            mixed.sub_(hat_self[li])
+            x.add_(mixed.mul_(gamma32))                          # X_half + gamma*(mix - hat)
+
+    def _deepsqueeze_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
+        X_items = leaf_items(state.params)
+        m, v = _moment_leaves(state.opt, len(X_items))
+        errs = tree_leaves(state.aux["err_self"])
+        for li, (_, x) in enumerate(X_items):
+            g, grads[li] = grads[li], None
+            x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
+            del g
+            err = errs[li].add_(x)                               # V = X_half + err
+            payload = wire.encode(err, leaf_seed(state.step, salt, li))
+            d_self = wire.decode_axpy_(payload, torch.zeros_like(x), 1.0)
+            # each neighbour's payload is decoded straight into the mix with
+            # its weight: acc + w*dec(roll(P, s)), the JAX plan_mix's
+            # ``out + w*nbr`` of a zero-based decode, without the buffer
+            mixed = plan.self_weight * d_self
+            for s, w in plan.shifts:
+                wire.decode_axpy_(_roll_payload(payload, s), mixed, w)
+            # the residual last: an identity payload is the V buffer itself
+            wire.decode_axpy_(payload, err, -1.0)                # err = V - dec(V)
+            del payload
+            x.add_(mixed.sub_(d_self))                           # X_half + (mix - D_self)
+
+    round_fn = {"dcd": _dcd_round, "ecd": _ecd_round, "choco": _choco_round,
+                "deepsqueeze": _deepsqueeze_round}[algo]
 
     def step(state: DistState, batch: Dict[str, torch.Tensor]) -> Tuple[DistState, Dict]:
         losses, metrics, grads = _node_grads(loss_fn, state.params, batch)

@@ -34,6 +34,14 @@ SIGNATURES = {
         "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
         "unpack_dequant_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
     },
+    "sign": {
+        "sign_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _P),
+        "unpack_sign_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
+    },
+    "sparse": {
+        "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _F, _P),
+        "sparse_scatter_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

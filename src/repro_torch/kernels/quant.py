@@ -1,14 +1,17 @@
-"""Wrappers of the quantize-pack (K1) and unpack-dequant-axpy (K2) kernels.
+"""Wrappers of the wire kernels: quantize-pack (K1) and unpack-dequant-axpy
+(K2) in ``csrc/quant.cu``, sign-pack (K5a) and unpack-sign-axpy (K5b) in
+``csrc/sign.cu``, sparse select-pack (K6) and sparse scatter-axpy (K6c) in
+``csrc/sparse.cu``.
 
 Same signatures and the same ``(rows, cols)`` contract as the JAX package's
-``quantize_pack_2d`` and ``unpack_dequant_axpy_2d``: one block per row,
-``cols % 128 == 0``.  Each wrapper checks device, dtype, shape and
-contiguity, runs the plain version (``kernels/ref.py``) for CPU tensors, and
-for CUDA tensors launches the kernel of ``csrc/quant.cu`` on the current
-stream or raises; there is no fallback.  Each keeps a plain integer count of
-its kernel launches (``launches``), which ``chip_smoke.py`` reads to show the
-training path went through the kernels; runs of the plain version do not
-count.
+functions of the same names: one block per row, ``cols % 128 == 0``.  Each
+wrapper checks device, dtype, shape and contiguity, runs the plain version
+(``kernels/ref.py``) for CPU tensors, and for CUDA tensors launches its
+kernel on the current stream or raises (a row wider than ``MAX_COLS``
+included); there is no fallback.  Each keeps a
+plain integer count of its kernel launches (``launches``), which
+``chip_smoke.py`` reads to show the training path went through the kernels;
+runs of the plain version do not count.
 
 Words are ``int32`` tensors holding the uint32 bit patterns of the JAX
 package's words (see ``kernels/ref.py``).
@@ -21,21 +24,49 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (
+    MASK32,
     PACKABLE_BITS,
+    SIGN_SCALE_MODES,
+    SPARSE_MODES,
     axpy_weights,
+    f32_scalar,
+    idx_bits_for,
     quantize_pack_2d_ref,
+    sign_pack_2d_ref,
+    sparse_geometry,
+    sparse_scatter_axpy_2d_ref,
+    sparse_select_pack_2d_ref,
     stream_geometry,
     unpack_dequant_axpy_2d_ref,
+    unpack_sign_axpy_2d_ref,
 )
 
-MAX_COLS = 8192   # K1 stages one row in shared memory: cols*4 B <= 32 KiB
+# The widest row a kernel takes: K1 stages a row in shared memory (cols*4 B
+# <= 32 KiB); K6 stages its keys and slots (cols*6 B <= 48 KiB) and numbers
+# lanes and slots in 16 bits.  The plain versions take any width.
+MAX_COLS = 8192
+
+SPARSE_VALUE_DTYPES = (torch.float32, torch.float16)
+
+
+def _check_block(cols: int) -> None:
+    if cols % 128 or cols <= 0:
+        raise ValueError(f"block_size must be a positive multiple of 128, got {cols}")
 
 
 def _check_cols(cols: int, bits: int) -> None:
     if bits not in PACKABLE_BITS:
         raise ValueError(f"packable bits are {PACKABLE_BITS}, got {bits}")
-    if cols % 128 or not 0 < cols <= MAX_COLS:
-        raise ValueError(f"block_size must be a multiple of 128 in (0, {MAX_COLS}], got {cols}")
+    _check_block(cols)
+
+
+def _check_device(fn_name: str, dev: torch.device, cols: int) -> None:
+    """Past the CPU branch: a CUDA tensor whose rows the kernel takes."""
+    if dev.type != "cuda":
+        raise ValueError(f"{fn_name} runs on cpu or cuda tensors, got {dev}")
+    if cols > MAX_COLS:
+        raise ValueError(f"{fn_name}'s kernel takes rows of at most {MAX_COLS} columns, "
+                         f"got {cols}")
 
 
 def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -64,8 +95,7 @@ def quantize_pack_2d(x: torch.Tensor, seed: int, *, bits: int):
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
         return quantize_pack_2d_ref(x, seed, bits=bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_pack_2d runs on cpu or cuda tensors, got {x.device}")
+    _check_device("quantize_pack_2d", x.device, cols)
     words = torch.empty((rows, cols * bits // 32), dtype=torch.int32, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     lib = build.load("quant")
@@ -105,8 +135,7 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
         res = unpack_dequant_axpy_2d_ref(packed, scale, acc, bits=bits, weight=weight,
                                          acc_weight=acc_weight)
         return res if out is None else out.copy_(res)
-    if dev.type != "cuda":
-        raise ValueError(f"unpack_dequant_axpy_2d runs on cpu or cuda tensors, got {dev}")
+    _check_device("unpack_dequant_axpy_2d", dev, cols)
     if out is None:
         out = torch.empty_like(acc)
     aw, wl = axpy_weights(bits, weight, acc_weight)
@@ -119,10 +148,149 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
     return out
 
 
+def sign_pack_2d(x: torch.Tensor, *, scale_mode: str = "mean"):
+    """Fused 1-bit sign + pack of a (rows, cols) f32 tensor: bit ``x >= 0``,
+    32 per word (element ``j*G + g`` is bit ``j`` of word ``g``), one scale
+    per row (``mean``: mean|x|, ``l2``: sqrt(mean x^2)).  Returns (int32
+    words (rows, cols/32), f32 scale (rows, 1))."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D (rows, cols), got shape {tuple(x.shape)}")
+    rows, cols = x.shape
+    _check_block(cols)
+    if scale_mode not in SIGN_SCALE_MODES:
+        raise ValueError(f"sign scale modes are {SIGN_SCALE_MODES}, got {scale_mode!r}")
+    _check_tensor("x", x, torch.float32, (rows, cols), x.device)
+    if x.device.type == "cpu":
+        return sign_pack_2d_ref(x, scale_mode=scale_mode)
+    _check_device("sign_pack_2d", x.device, cols)
+    words = torch.empty((rows, cols // 32), dtype=torch.int32, device=x.device)
+    scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    lib = build.load("sign")
+    err = lib.sign_pack_2d_launch(x.data_ptr(), words.data_ptr(), scale.data_ptr(), rows,
+                                  cols, int(scale_mode == "l2"), _stream(x.device))
+    build.check_launch("sign_pack_2d", err)
+    sign_pack_2d.launches += 1
+    return words, scale
+
+
+def unpack_sign_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor,
+                        *, weight, acc_weight=1.0,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused unpack + sign decode + accumulate:
+    ``acc_weight * acc + (2u - 1) * (scale * weight)`` over (rows, cols).
+    ``out`` may be ``acc`` itself (in-place update)."""
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be 2-D (rows, words), got {tuple(packed.shape)}")
+    rows, w = packed.shape
+    cols = w * 32
+    _check_block(cols)
+    dev = packed.device
+    _check_tensor("packed", packed, torch.int32, (rows, w), dev)
+    _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
+    _check_tensor("acc", acc, torch.float32, (rows, cols), dev)
+    if out is not None:
+        _check_tensor("out", out, torch.float32, (rows, cols), dev)
+    if dev.type == "cpu":
+        res = unpack_sign_axpy_2d_ref(packed, scale, acc, weight=weight, acc_weight=acc_weight)
+        return res if out is None else out.copy_(res)
+    _check_device("unpack_sign_axpy_2d", dev, cols)
+    if out is None:
+        out = torch.empty_like(acc)
+    lib = build.load("sign")
+    err = lib.unpack_sign_axpy_2d_launch(packed.data_ptr(), scale.data_ptr(), acc.data_ptr(),
+                                         out.data_ptr(), rows, cols, f32_scalar(acc_weight),
+                                         f32_scalar(weight), _stream(dev))
+    build.check_launch("unpack_sign_axpy_2d", err)
+    unpack_sign_axpy_2d.launches += 1
+    return out
+
+
+def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
+                          value_dtype=torch.float32):
+    """Fused fixed-capacity selection of a (rows, cols) f32 tensor: ``k =
+    ceil(p*cols)`` elements a row in canonical order (descending key, ties to
+    the smaller index; ``topk`` key |x| with NaN last, ``randk`` key the PCG
+    hash of the fold's counter, values rescaled by cols/k), their indices
+    stream-packed.  Returns (values (rows, k) ``value_dtype``, int32 words
+    (rows, words)) with ``k, words`` from ``sparse_geometry(cols, p)``."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D (rows, cols), got shape {tuple(x.shape)}")
+    rows, cols = x.shape
+    _check_block(cols)
+    if mode not in SPARSE_MODES:
+        raise ValueError(f"sparse modes are {SPARSE_MODES}, got {mode!r}")
+    if not 0.0 < p <= 1.0:
+        raise ValueError(f"keep fraction p must be in (0, 1], got {p}")
+    if value_dtype not in SPARSE_VALUE_DTYPES:
+        raise TypeError(f"sparse values are {SPARSE_VALUE_DTYPES}, got {value_dtype}")
+    _check_tensor("x", x, torch.float32, (rows, cols), x.device)
+    if x.device.type == "cpu":
+        return sparse_select_pack_2d_ref(x, seed, p=p, mode=mode, value_dtype=value_dtype)
+    _check_device("sparse_select_pack_2d", x.device, cols)
+    k, _, kpad, n_words = sparse_geometry(cols, p)
+    values = torch.empty((rows, k), dtype=value_dtype, device=x.device)
+    words = torch.empty((rows, n_words), dtype=torch.int32, device=x.device)
+    lib = build.load("sparse")
+    err = lib.sparse_select_pack_2d_launch(
+        x.data_ptr(), values.data_ptr(), words.data_ptr(), rows, cols, k, kpad,
+        int(mode == "topk"), int(value_dtype == torch.float16), int(seed) & MASK32,
+        f32_scalar(cols / k), _stream(x.device))
+    build.check_launch("sparse_select_pack_2d", err)
+    sparse_select_pack_2d.launches += 1
+    return values, words
+
+
+def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torch.Tensor,
+                           *, weight, acc_weight=1.0,
+                           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fused unpack + scatter + accumulate: ``acc_weight * acc + weight *
+    scatter(values)`` over (rows, cols), a lane that receives no value
+    adding +0.0.  ``out`` may be ``acc`` itself (in-place update)."""
+    if values.dim() != 2 or acc.dim() != 2:
+        raise ValueError(f"values and acc must be 2-D, got {tuple(values.shape)}, "
+                         f"{tuple(acc.shape)}")
+    rows, k = values.shape
+    cols = acc.shape[1]
+    _check_block(cols)
+    if not 0 < k <= cols:
+        raise ValueError(f"k={k} values do not fit a {cols}-wide row")
+    if values.dtype not in SPARSE_VALUE_DTYPES:
+        raise TypeError(f"sparse values are {SPARSE_VALUE_DTYPES}, got {values.dtype}")
+    idx_bits = idx_bits_for(cols)
+    cpg, _ = stream_geometry(idx_bits)
+    kpad = -(-k // cpg) * cpg
+    dev = values.device
+    _check_tensor("values", values, values.dtype, (rows, k), dev)
+    _check_tensor("packed", packed, torch.int32, (rows, kpad * idx_bits // 32), dev)
+    _check_tensor("acc", acc, torch.float32, (rows, cols), dev)
+    if out is not None:
+        _check_tensor("out", out, torch.float32, (rows, cols), dev)
+    if dev.type == "cpu":
+        res = sparse_scatter_axpy_2d_ref(values, packed, acc, weight=weight,
+                                         acc_weight=acc_weight)
+        return res if out is None else out.copy_(res)
+    _check_device("sparse_scatter_axpy_2d", dev, cols)
+    if out is None:
+        out = torch.empty_like(acc)
+    lib = build.load("sparse")
+    err = lib.sparse_scatter_axpy_2d_launch(
+        values.data_ptr(), packed.data_ptr(), acc.data_ptr(), out.data_ptr(), rows, cols, k,
+        kpad, int(values.dtype == torch.float16), f32_scalar(acc_weight),
+        f32_scalar(weight), _stream(dev))
+    build.check_launch("sparse_scatter_axpy_2d", err)
+    sparse_scatter_axpy_2d.launches += 1
+    return out
+
+
 quantize_pack_2d.launches = 0
 unpack_dequant_axpy_2d.launches = 0
+sign_pack_2d.launches = 0
+unpack_sign_axpy_2d.launches = 0
+sparse_select_pack_2d.launches = 0
+sparse_scatter_axpy_2d.launches = 0
 
-KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d)
+KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, sign_pack_2d,
+                   unpack_sign_axpy_2d, sparse_select_pack_2d, sparse_scatter_axpy_2d)
 
 
 def reset_launch_counts() -> None:

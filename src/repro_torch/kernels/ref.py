@@ -1,11 +1,17 @@
-"""Plain PyTorch versions of the quantize-pack and unpack-dequant-axpy kernels.
+"""Plain PyTorch versions of the wire kernels: quantize-pack and
+unpack-dequant-axpy, sign-pack and sign-axpy, sparse select-pack and
+scatter-axpy.
 
 The port's copy of the JAX package's ``kernels/ref.py`` and the helpers of
-``kernels/quant.py`` (``stream_geometry``, ``pcg_hash``,
-``uniform_from_hash``), on the same arithmetic term for term, so the words
-and scales they produce are bit-equal to the JAX package's for the same
-seed.  The CUDA kernels in ``csrc/quant.cu`` are held to these functions on
-the card; the CPU tests hold these functions to the JAX package.
+``kernels/quant.py`` (``stream_geometry``, ``idx_bits_for``,
+``sparse_geometry``, ``pcg_hash``, ``uniform_from_hash``), on the same
+arithmetic term for term, so the words, indices and values they produce are
+bit-equal to the JAX package's for the same seed.  One deliberate exception:
+the sign codec's per-row scale is a sum, and the plain version here fixes
+the order of that sum (see :func:`sign_scale_2d`) so that it is bit-equal to
+the CUDA kernel; it agrees with the JAX package's ``jnp.mean`` to rounding.
+The CUDA kernels in ``csrc/*.cu`` are held to these functions on the card;
+the CPU tests hold these functions to the JAX package.
 
 Integer conventions.  torch has no usable ``uint32`` arithmetic on the CPU
 (``add``/``>>``/``<<``/``max`` raise for ``UInt32``), so the 32-bit hash and
@@ -29,6 +35,10 @@ import torch
 
 PACKABLE_BITS = (2, 3, 4, 5, 6, 7)
 
+SPARSE_MODES = ("randk", "topk")
+
+SIGN_SCALE_MODES = ("mean", "l2")
+
 MASK32 = 0xFFFFFFFF
 
 # Rows per pass of the plain versions: bounds their int64 temporaries
@@ -40,6 +50,23 @@ def stream_geometry(bits: int) -> tuple:
     """(codes per group, words per group) of the v2 stream layout."""
     l = math.lcm(bits, 32)
     return l // bits, l // 32
+
+
+def idx_bits_for(block: int) -> int:
+    """Bits needed to address one element of a ``block``-wide row (>= 1)."""
+    return max(1, (block - 1).bit_length())
+
+
+def sparse_geometry(block: int, p: float) -> tuple:
+    """(k, idx_bits, kpad, words) of the fixed-capacity sparse wire format:
+    ``k = ceil(p * block)`` values per block, their block-local indices
+    stream-packed at ``idx_bits`` bits into ``kpad`` slots (whole stream
+    groups, zero tail), which fill ``words`` uint32 words."""
+    k = min(block, max(1, math.ceil(p * block)))
+    w = idx_bits_for(block)
+    cpg, _ = stream_geometry(w)
+    kpad = -(-k // cpg) * cpg
+    return k, w, kpad, kpad * w // 32
 
 
 def levels_for(bits: int) -> int:
@@ -206,13 +233,18 @@ def dequantize_2d_ref(codes: torch.Tensor, scale: torch.Tensor, *, bits: int) ->
     return codes.to(torch.float32) * (scale.to(torch.float32) * inv_l)
 
 
+def f32_scalar(v) -> float:
+    """A host number rounded to f32, as the JAX kernels' f32 scalar operand
+    rounds their weights (and the randk rescale ``cols / k``)."""
+    return float(np.float32(v))
+
+
 def axpy_weights(bits: int, weight, acc_weight) -> tuple:
     """The f32 scalars of the fused receive: ``(aw, w*(1/L))`` rounded as the
     JAX kernel rounds them (``quant.py:230-231``: weights ride an f32
     operand, ``w * f32(1/L)`` is one f32 product)."""
-    aw = np.float32(acc_weight)
     wl = np.float32(weight) * np.float32(1.0 / levels_for(bits))
-    return float(aw), float(wl)
+    return f32_scalar(acc_weight), float(wl)
 
 
 def unpack_dequant_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor,
@@ -229,3 +261,191 @@ def unpack_dequant_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor,
         code = unpack_codes(packed[sl], bits=bits).to(torch.float32)
         out[sl] = aw * acc[sl].to(torch.float32) + code * inv
     return out
+
+
+# ------------------------------------------------------------ sparse codec
+
+def sparse_keys_2d(x: torch.Tensor, seed: int, *, mode: str, row0: int = 0) -> torch.Tensor:
+    """Selection key of every element of a (rows, cols) fold, int64 in
+    [0, 2^32); the canonical order is descending key, ties to the smaller
+    index.  ``randk``: ``pcg_hash(counter ^ seed)`` with the fold's counter
+    ``(row0 + r) * cols + lane`` (a bijection, so keys in a row are
+    distinct).  ``topk``: ``bits(|x|) + 1``, and 0 for NaN, so NaN ranks
+    below every real magnitude and -0.0 ties +0.0 — the order of the JAX
+    package's stable ``argsort(-|x|)`` (NaN last, zeros equal).  The
+    magnitude is taken on the bits, so no float operation can flush a
+    subnormal."""
+    if mode not in SPARSE_MODES:
+        raise ValueError(f"sparse modes are {SPARSE_MODES}, got {mode!r}")
+    rows, cols = x.shape
+    if mode == "randk":
+        return pcg_hash(block_counters_2d(rows, cols, x.device, row0) ^ (int(seed) & MASK32))
+    mag = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    return torch.where(torch.isnan(x), torch.zeros_like(mag), mag + 1)
+
+
+def sparse_order_2d_ref(x: torch.Tensor, seed: int, *, mode: str,
+                        row0: int = 0) -> torch.Tensor:
+    """Every column index of a (rows, cols) fold in canonical selection
+    order (int64): ``key ^ 0xFFFFFFFF`` sorted ascending and stably, as the
+    JAX package sorts its randk keys."""
+    key = sparse_keys_2d(x, seed, mode=mode, row0=row0)
+    return torch.sort(key ^ MASK32, dim=1, stable=True).indices
+
+
+def sparse_select_2d_ref(x: torch.Tensor, seed: int, *, k: int, mode: str,
+                         value_dtype=torch.float32, row0: int = 0):
+    """Fixed-capacity selection: (values (rows, k) ``value_dtype``, int64
+    indices (rows, k)) in canonical order.  ``randk`` rescales kept values by
+    the f32 constant ``cols / k`` (inclusion probability k/cols)."""
+    cols = x.shape[1]
+    x = x.to(torch.float32)
+    sel = sparse_order_2d_ref(x, seed, mode=mode, row0=row0)[:, :k]
+    vals = torch.gather(x, 1, sel)
+    if mode == "randk":
+        vals = vals * f32_scalar(cols / k)
+    return vals.to(value_dtype), sel
+
+
+def sparse_pack_idx(indices: torch.Tensor, *, block: int, kpad: int) -> torch.Tensor:
+    """(..., k) block-local indices -> (..., words) int32 packed stream: zero
+    tail up to ``kpad``, then :func:`pack_uint` at ``idx_bits_for(block)``."""
+    pad = kpad - indices.shape[-1]
+    if pad:
+        indices = torch.nn.functional.pad(indices, (0, pad))
+    return pack_uint(indices, bits=idx_bits_for(block))
+
+
+def sparse_unpack_idx(packed: torch.Tensor, *, block: int, k: int) -> torch.Tensor:
+    """Inverse of :func:`sparse_pack_idx`: (..., words) -> (..., k) int64."""
+    return unpack_uint(packed, bits=idx_bits_for(block))[..., :k]
+
+
+def sparse_select_pack_2d_ref(x: torch.Tensor, seed: int, *, p: float, mode: str,
+                              value_dtype=torch.float32):
+    """Plain version of kernel K6: select, gather, pack the index stream.
+    Returns (values (rows, k) ``value_dtype``, int32 words (rows, words))."""
+    rows, cols = x.shape
+    k, _, kpad, _ = sparse_geometry(cols, p)
+    vals, words = [], []
+    for r in range(0, max(rows, 1), ROW_CHUNK):
+        v, sel = sparse_select_2d_ref(x[r:r + ROW_CHUNK], seed, k=k, mode=mode,
+                                      value_dtype=value_dtype, row0=r)
+        vals.append(v)
+        words.append(sparse_pack_idx(sel, block=cols, kpad=kpad))
+    return torch.cat(vals), torch.cat(words)
+
+
+def sparse_scatter_2d_ref(values: torch.Tensor, indices: torch.Tensor, *,
+                          cols: int) -> torch.Tensor:
+    """(rows, k) values at duplicate-free indices -> dense (rows, cols) f32.
+    Added into zeros, as the JAX package's one-hot sum adds them."""
+    dense = torch.zeros((values.shape[0], cols), dtype=torch.float32, device=values.device)
+    return dense.scatter_add_(1, indices, values.to(torch.float32))
+
+
+def sparse_unpack_scatter_2d_ref(values: torch.Tensor, packed: torch.Tensor, *,
+                                 cols: int) -> torch.Tensor:
+    k = values.shape[-1]
+    return sparse_scatter_2d_ref(values, sparse_unpack_idx(packed, block=cols, k=k),
+                                 cols=cols)
+
+
+def sparse_scatter_axpy_2d_ref(values: torch.Tensor, packed: torch.Tensor,
+                               acc: torch.Tensor, *, weight, acc_weight=1.0) -> torch.Tensor:
+    """Plain version of kernel K6c: ``aw*acc + (hit ? w*value : +0.0)`` per
+    lane, with ``aw`` and ``w`` rounded to f32 as the JAX kernel's operand
+    rounds them.  Equal to the JAX oracle ``aw*acc + w*scatter(values)`` up
+    to the sign of a zero."""
+    aw, w = f32_scalar(acc_weight), f32_scalar(weight)
+    rows, cols = acc.shape
+    k = values.shape[-1]
+    out = torch.empty_like(acc, dtype=torch.float32)
+    for r in range(0, rows, ROW_CHUNK):
+        sl = slice(r, r + ROW_CHUNK)
+        idx = sparse_unpack_idx(packed[sl], block=cols, k=k)
+        dense = torch.zeros_like(out[sl]).scatter_(1, idx, values[sl].to(torch.float32))
+        hit = torch.zeros(dense.shape, dtype=torch.bool, device=dense.device).scatter_(
+            1, idx, True)
+        out[sl] = aw * acc[sl].to(torch.float32) + torch.where(
+            hit, w * dense, torch.zeros((), dtype=torch.float32, device=dense.device))
+    return out
+
+
+# -------------------------------------------------------------- sign codec
+
+def sign_scale_2d(x: torch.Tensor, *, scale_mode: str) -> torch.Tensor:
+    """Per-row scale of the 1-bit codec, (rows, 1) f32: ``mean`` = mean|x|,
+    ``l2`` = sqrt(mean x^2).  The sum runs in one fixed order, the CUDA
+    kernel's: with ``G = cols/32``, partial ``g`` adds its 32 elements
+    ``{j*G + g}`` in ``j`` order, then a halving tree over the partials
+    (zero-padded to a power of two) adds ``s[t] += s[t + h]``.  Then a true
+    division by ``cols`` and, for ``l2``, a correctly rounded square root.
+    The JAX package's ``jnp.mean`` sums in another order, so the two agree
+    to rounding, not to the bit."""
+    if scale_mode not in SIGN_SCALE_MODES:
+        raise ValueError(f"sign scale modes are {SIGN_SCALE_MODES}, got {scale_mode!r}")
+    rows, cols = x.shape
+    g = cols // 32
+    x = x.to(torch.float32)
+    a = (x.abs() if scale_mode == "mean" else x * x).reshape(rows, 32, g)
+    s = a[:, 0]
+    for j in range(1, 32):
+        s = s + a[:, j]
+    width = 1 << (g - 1).bit_length()
+    if width > g:
+        s = torch.nn.functional.pad(s, (0, width - g))
+    while s.shape[1] > 1:
+        h = s.shape[1] // 2
+        s = s[:, :h] + s[:, h:]
+    mean = s / torch.full_like(s, float(cols))
+    return mean if scale_mode == "mean" else torch.sqrt(mean)
+
+
+def sign_pack_2d_ref(x: torch.Tensor, *, scale_mode: str = "mean"):
+    """Plain version of kernel K5a: one sign bit per element (``x >= 0``, so
+    -0.0 codes +1 and NaN codes 0) packed 32 to a word through the width-1
+    stream (bit ``j`` of word ``g`` is element ``j*G + g``), and the per-row
+    scale of :func:`sign_scale_2d`.  Returns (int32 words (rows, cols/32),
+    f32 scale (rows, 1))."""
+    x = x.to(torch.float32)
+    words, scales = [], []
+    for r in range(0, max(x.shape[0], 1), ROW_CHUNK):
+        xc = x[r:r + ROW_CHUNK]
+        words.append(pack_uint((xc >= 0.0).to(torch.int64), bits=1))
+        scales.append(sign_scale_2d(xc, scale_mode=scale_mode))
+    return torch.cat(words), torch.cat(scales)
+
+
+def unpack_sign_2d_ref(packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`sign_pack_2d_ref`: ``(2u - 1) * scale``."""
+    u = unpack_uint(packed, bits=1).to(torch.float32)
+    return (u * 2.0 - 1.0) * scale.to(torch.float32)
+
+
+def unpack_sign_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor,
+                            *, weight, acc_weight=1.0) -> torch.Tensor:
+    """Plain version of kernel K5b: ``aw*acc + (2u - 1)*(scale*w)``.  The
+    sign factor is exactly +-1, so this equals the JAX oracle's
+    ``aw*acc + w*((2u - 1)*scale)`` bit for bit."""
+    aw, w = f32_scalar(acc_weight), f32_scalar(weight)
+    out = torch.empty_like(acc, dtype=torch.float32)
+    for r in range(0, packed.shape[0], ROW_CHUNK):
+        sl = slice(r, r + ROW_CHUNK)
+        sgn = unpack_uint(packed[sl], bits=1).to(torch.float32) * 2.0 - 1.0
+        out[sl] = aw * acc[sl].to(torch.float32) + sgn * (scale[sl].to(torch.float32) * w)
+    return out
+
+
+# ------------------------------------------------------------- comparison
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The kernels' equality contract with their plain versions: same shape,
+    dtype and bits, any NaN matching any NaN (a NaN's payload bits are not
+    part of the contract; the CPU and the card make different ones)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    view = torch.int32 if a.element_size() == 4 else torch.int16
+    return bool(((a.view(view) == b.view(view)) | (torch.isnan(a) & torch.isnan(b))).all())

@@ -6,6 +6,7 @@ stacked node axis lives on one device — the GPU unless ``device="cpu"`` —
 and every gossip payload rides the port's kernels.
 
     python -m repro_torch.launch.train --algo dcd --wire quant:4 --steps 20
+    python -m repro_torch.launch.train --algo choco --wire sign --steps 20
 
 Not ported yet (the flags exist and raise when set): checkpoints
 (``--ckpt-dir``), phase plans (``--phase-plan``) and edge drops
@@ -35,9 +36,9 @@ from repro_torch.optim.schedules import linear_warmup_cosine
 @dataclasses.dataclass
 class TrainConfig:
     arch: Optional[str] = None          # assigned arch id, or None for custom cfg
-    algo: str = "dcd"                   # ported: dcd | ecd
+    algo: str = "dcd"                   # dcd | ecd | choco | deepsqueeze
     wire: str = "quant:8"               # gossip wire-format spec (make_wire_format)
-    gamma: float = 0.5                  # CHOCO consensus stepsize (CHOCO not ported)
+    gamma: float = 0.5                  # CHOCO consensus stepsize
     topology: str = "ring"              # gossip plan name (make_gossip_plan)
     phase_plan: Optional[str] = None    # not ported
     n_nodes: int = 8
@@ -83,7 +84,7 @@ def run_training(cfg: ArchConfig, tc: TrainConfig, *, device="cuda") -> Dict[str
     sched = linear_warmup_cosine(tc.lr, tc.warmup, tc.steps)
     plan = make_gossip_plan(tc.topology, tc.n_nodes)
     step_fn = make_dist_train_step(model.loss, tc.algo, opt, make_wire_format(tc.wire),
-                                   plan, sched)
+                                   plan, sched, gamma=tc.gamma)
     params0 = model.init(tc.seed, device=device)
     state = init_dist_state(tc.algo, params0, plan, opt)
     del params0

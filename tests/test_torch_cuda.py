@@ -1,4 +1,5 @@
-"""Card-only tests of the port's CUDA kernels (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K5a,
+K5b, K6 and K6c against their plain versions.
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -81,3 +82,105 @@ def test_wire_dcd_round_on_card_matches_cpu(cuda):
     wire.decode_axpy_(p_gpu, acc, 2.0, -1.0)
     wire.decode_axpy_(p_cpu, a_cpu, 2.0, -1.0)
     assert torch.equal(acc.cpu(), a_cpu)
+
+
+def _edge_rows(x):
+    """All-zero row, -0.0 entries, a NaN, exact ties (both signs)."""
+    x[0].zero_()
+    x[1, :9] = -0.0
+    x[2, 5] = float("nan")
+    x[3, :] = 0.75
+    x[3, 1::2] = -0.75
+    return x
+
+
+@pytest.mark.parametrize("scale_mode", ["mean", "l2"])
+@pytest.mark.parametrize("rows,cols", [(37, 128), (64, 1024), (9, 384), (5, 8192)])
+def test_sign_pack_kernel_bit_equal(cuda, scale_mode, rows, cols):
+    x = _edge_rows(_x(rows, cols, cuda, seed=cols))
+    before = q.sign_pack_2d.launches
+    words, scale = q.sign_pack_2d(x, scale_mode=scale_mode)
+    torch.cuda.synchronize()
+    assert q.sign_pack_2d.launches == before + 1
+    w_ref, s_ref = ref.sign_pack_2d_ref(x, scale_mode=scale_mode)
+    assert torch.equal(words, w_ref) and ref.same_bits(scale, s_ref)
+
+
+@pytest.mark.parametrize("acc_weight,weight", [(1.0, 1.0), (1.0, -1.0), (0.5, 1.0 / 3.0)])
+def test_unpack_sign_axpy_kernel_bit_equal(cuda, acc_weight, weight):
+    x = _edge_rows(_x(40, 1024, cuda, seed=3))
+    acc = _x(40, 1024, cuda, seed=4)
+    words, scale = q.sign_pack_2d(x)
+    out = q.unpack_sign_axpy_2d(words, scale, acc, weight=weight, acc_weight=acc_weight)
+    want = ref.unpack_sign_axpy_2d_ref(words, scale, acc, weight=weight, acc_weight=acc_weight)
+    assert ref.same_bits(out, want)
+    q.unpack_sign_axpy_2d(words, scale, acc, weight=weight, acc_weight=acc_weight, out=acc)
+    assert ref.same_bits(acc, want)
+
+
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("p", [0.05, 0.25, 1.0])
+@pytest.mark.parametrize("rows,cols", [(37, 128), (20, 1024), (6, 384), (5, 4096), (5, 8192)])
+def test_sparse_select_pack_kernel_bit_equal(cuda, mode, p, rows, cols):
+    x = _edge_rows(_x(rows, cols, cuda, seed=cols + 1))
+    for value_dtype in (torch.float32, torch.float16):
+        before = q.sparse_select_pack_2d.launches
+        vals, idx = q.sparse_select_pack_2d(x, 0xC0FFEE, p=p, mode=mode, value_dtype=value_dtype)
+        torch.cuda.synchronize()
+        assert q.sparse_select_pack_2d.launches == before + 1
+        v_ref, i_ref = ref.sparse_select_pack_2d_ref(x, 0xC0FFEE, p=p, mode=mode,
+                                                     value_dtype=value_dtype)
+        assert torch.equal(idx, i_ref) and ref.same_bits(vals, v_ref)
+
+
+@pytest.mark.parametrize("cols", [128, 8192])
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("acc_weight,weight", [(1.0, 1.0), (1.0, -1.0), (0.5, 1.0 / 3.0)])
+def test_sparse_scatter_axpy_kernel_bit_equal(cuda, value_dtype, acc_weight, weight, cols):
+    x = _edge_rows(_x(33, cols, cuda, seed=9))
+    acc = _x(33, cols, cuda, seed=10)
+    vals, idx = q.sparse_select_pack_2d(x, 5, p=0.25, mode="topk", value_dtype=value_dtype)
+    out = q.sparse_scatter_axpy_2d(vals, idx, acc, weight=weight, acc_weight=acc_weight)
+    want = ref.sparse_scatter_axpy_2d_ref(vals, idx, acc, weight=weight, acc_weight=acc_weight)
+    assert ref.same_bits(out, want)
+    q.sparse_scatter_axpy_2d(vals, idx, acc, weight=weight, acc_weight=acc_weight, out=acc)
+    assert ref.same_bits(acc, want)
+
+
+@pytest.mark.parametrize("spec", ["sign", "sparse:0.05:topk", "sparse:0.25:randk:256"])
+def test_wire_choco_round_on_card_matches_cpu(cuda, spec):
+    """Encode + in-place decode of a stacked ragged leaf on the card equals
+    the CPU's (plain versions), containers and floats."""
+    from repro_torch.distributed.wire import make_wire_format
+
+    wire = make_wire_format(spec)
+    leaf = _x(8, 3000, cuda, seed=5).reshape(8, 1, 3000)
+    acc = _x(8, 3000, cuda, seed=6).reshape(8, 1, 3000)
+    p_gpu = wire.encode(leaf, 77)
+    p_cpu = wire.encode(leaf.cpu(), 77)
+    for k in p_cpu:
+        assert ref.same_bits(p_gpu[k].cpu(), p_cpu[k]), k
+    a_cpu = acc.cpu()
+    wire.decode_axpy_(p_gpu, acc, 1.0 / 3.0, 1.0)
+    wire.decode_axpy_(p_cpu, a_cpu, 1.0 / 3.0, 1.0)
+    assert ref.same_bits(acc.cpu(), a_cpu)
+
+
+def test_wrappers_raise_on_rows_wider_than_the_kernels(cuda):
+    """A CUDA row past ``MAX_COLS`` raises in every wrapper; nothing falls
+    back to the plain version on the card."""
+    cols = 2 * q.MAX_COLS
+    x = _x(2, cols, cuda)
+    words, scale = ref.quantize_pack_2d_ref(x, 1, bits=4)
+    signs, sign_scale = ref.sign_pack_2d_ref(x)
+    vals, idx = ref.sparse_select_pack_2d_ref(x, 1, p=0.01, mode="topk")
+    before = q.launch_counts()
+    for call in (lambda: q.quantize_pack_2d(x, 1, bits=4),
+                 lambda: q.unpack_dequant_axpy_2d(words, scale, x, bits=4, weight=1.0),
+                 lambda: q.sign_pack_2d(x),
+                 lambda: q.unpack_sign_axpy_2d(signs, sign_scale, x, weight=1.0),
+                 lambda: q.sparse_select_pack_2d(x, 1, p=0.01, mode="topk"),
+                 lambda: q.sparse_scatter_axpy_2d(vals, idx, x, weight=1.0)):
+        with pytest.raises(ValueError, match="at most"):
+            call()
+    assert q.launch_counts() == before

@@ -112,7 +112,18 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     tq.reset_launch_counts()
     words, scale = tq.quantize_pack_2d(x, 1, bits=4)
     tq.unpack_dequant_axpy_2d(words, scale, x, bits=4, weight=1.0)
-    assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0}
+    signs, sign_scale = tq.sign_pack_2d(x)
+    tq.unpack_sign_axpy_2d(signs, sign_scale, x, weight=1.0)
+    vals, idx = tq.sparse_select_pack_2d(x, 1, p=0.25, mode="topk")
+    tq.sparse_scatter_axpy_2d(vals, idx, x, weight=1.0)
+    assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0,
+                                  "sign_pack_2d": 0, "unpack_sign_axpy_2d": 0,
+                                  "sparse_select_pack_2d": 0, "sparse_scatter_axpy_2d": 0}
+    for fn in tq.KERNEL_WRAPPERS:                                 # the counter is the wrapper's
+        fn.launches = 3
+    assert set(tq.launch_counts().values()) == {3}
+    tq.reset_launch_counts()
+    assert set(tq.launch_counts().values()) == {0}
     with pytest.raises(ValueError):
         tq.quantize_pack_2d(torch.zeros((4, 96)), 1, bits=4)        # off the 128-lane contract
     with pytest.raises(TypeError):

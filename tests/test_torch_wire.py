@@ -1,8 +1,11 @@
-"""The port's quant wire against the JAX package's, on the CPU.
+"""The port's wires against the JAX package's, on the CPU.
 
 Stacked (n, ...) leaves with ragged last dims, made with numpy from a seed:
-payload words and scales must be bit-equal for the same (step, salt, leaf)
-counter, on and off the 128-lane kernel gate, and decodes must agree.
+payload words, indices, values and scales must be bit-equal for the same
+(step, salt, leaf) counter, on and off the 128-lane kernel gate, and decodes
+must agree.  The sign, sparse, fp16 and identity payloads and decodes are
+held to the JAX wires in ``test_torch_ef_wire.py``; their specs and measured
+bits are here.
 """
 import jax
 import jax.numpy as jnp
@@ -89,10 +92,13 @@ def test_leaf_seed_and_block_counters_match_jax():
 
 
 @pytest.mark.parametrize("spec", ["quant:4", "quant:3:256", "quant:8", "quant:bits=2,block=128",
-                                  "quant:4:32"])
+                                  "quant:4:32", "sign", "sign:l2:256", "sparse:0.25",
+                                  "sparse:0.05:topk", "sparse:0.25:randk:128:value_dtype=float16",
+                                  "fp16", "identity"])
 def test_wire_spec_and_measured_bits_match_jax(spec):
     jwire, twire = jw.make_wire_format(spec), tw.make_wire_format(spec)
     assert tw.wire_spec(twire) == jw.wire_spec(jwire)
+    assert tw.make_wire_format(tw.wire_spec(twire)) == twire
     assert twire.packed == jwire.packed and twire.wire_format == jwire.wire_format
     for shape in (None, (1000,), (3, 517)):
         assert twire.wire_bits_per_element(shape) == jwire.wire_bits_per_element(shape)
@@ -100,6 +106,13 @@ def test_wire_spec_and_measured_bits_match_jax(spec):
 
 def test_unported_specs_raise():
     with pytest.raises(ValueError):
-        tw.make_wire_format("sparse:0.25")
+        tw.make_wire_format("lowrank:2")
     with pytest.raises(ValueError):
         tw.make_wire_format("quant:4:1024:9")
+
+
+def test_wire_rejects_bad_args():
+    for spec in ("sign:max", "sign:mean:100", "sparse:0", "sparse:0.5:best",
+                 "sparse:0.5:topk:128:value_dtype=bfloat16"):
+        with pytest.raises(ValueError):
+            tw.make_wire_format(spec)

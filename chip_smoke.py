@@ -15,22 +15,35 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    -0.0, a NaN and exact ties.  Words, indices, values, scales and floats
    must be bit-equal (a NaN matching any NaN).  Each is timed with CUDA
    events beside its bound (bytes moved over 3.35 TB/s, or operations over
-   67 TFLOP/s, whichever is larger) and beside its plain version.
+   67 TFLOP/s, whichever is larger) and beside its plain version.  For
+   ``lowrank`` (K7a, K7b) the folds are whole leaves with their lead batch
+   of 8: ``lm_head`` (2048 x 49408) and ``embed`` (49408 x 2048), each with
+   the cold factor shared at batch stride 0 and with warm per-slab factors,
+   ``wk`` (2048 x 512), a norm leaf (1 x 2048) and a ragged 37 x 384 fold,
+   at ranks 1, 2, 4 and 128 (the largest), with zeros, -0.0 and a NaN row;
+   their rank-2 ``lm_head`` times stand beside the one PyTorch call that
+   computes the same function (``torch.bmm``, ``torch.baddbmm``).
 3. train   — granite-3-2b at full width with its depth cut to one layer,
    8 nodes stacked on the card, ring, through
    ``repro_torch.launch.train.run_training``: DCD and ECD over ``quant:4``,
    CHOCO (gamma 0.5) and DeepSqueeze over ``sign``, CHOCO over
-   ``sparse:0.05:topk``.  Each run's kernel launch counts are zeroed just
-   before it and read just after; each kernel of the run's wire must show
-   its launches a step (12 sends, 36 receives for DCD, ECD and CHOCO, 48 for
-   DeepSqueeze) and every other kernel none.  The shared-state invariants
-   ``rep{s} == roll(X, s)`` (DCD), ``tilde{s} == roll(tilde_self, s)`` (ECD)
-   and ``hat{s} == roll(hat_self, s)`` (CHOCO) are checked.
+   ``sparse:0.05:topk``, DCD over ``lowrank:2:warm`` and ``lowrank:2``, and
+   CHOCO over ``adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4``.
+   Each run's kernel launch counts are zeroed just before it and read just
+   after; each kernel of the run's wire must show its launches a step (12
+   sends, 36 receives for DCD, ECD and CHOCO, 48 for DeepSqueeze; 11 K7a and
+   33 K7b for DCD over ``lowrank``, one per matrix leaf and 1 + 2 shifts
+   per matrix leaf; under ``adaptive`` 1 K1 + 3 K2 for ``embed`` and 8 K7a
+   + 24 K7b for the other matrices) and every other kernel none.  The
+   shared-state invariants ``rep{s} == roll(X, s)`` (DCD),
+   ``tilde{s} == roll(tilde_self, s)`` (ECD) and ``hat{s} ==
+   roll(hat_self, s)`` (CHOCO) are checked, and every non-zero warm factor
+   must change every step.
 4. profile — device time by kernel over a further 2-step DCD ``quant:4``
-   run and a 2-step CHOCO ``sign`` run.
-5. reference — reduced granite runs (DCD ``quant:4``, CHOCO ``sign``) on the
-   card against the same runs on the CPU (the kernels' plain versions),
-   same params and batches.
+   run, a 2-step CHOCO ``sign`` run and a 2-step DCD ``lowrank:2:warm`` run.
+5. reference — reduced granite runs (DCD ``quant:4``, CHOCO ``sign``, DCD
+   ``lowrank:2:warm``) on the card against the same runs on the CPU (the
+   kernels' plain versions), same params and batches.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -52,7 +65,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published peak at 700 W
 F32_OPS_PER_S = 67e12            # H100 SXM f32 outside the tensor cores
-INVARIANT_LIMIT = 1e-6
+INVARIANT_LIMIT = 0.0           # the shared-state invariants hold exactly
 
 
 def log(msg: str) -> None:
@@ -111,11 +124,16 @@ KERNELS = {
                               "src/repro/kernels/quant.py:503"),
     "sparse_scatter_axpy_2d": ("src/repro_torch/kernels/csrc/sparse.cu",
                                "src/repro/kernels/quant.py:684"),
+    "lowrank_project_2d": ("src/repro_torch/kernels/csrc/lowrank.cu",
+                           "src/repro/kernels/lowrank.py:67"),
+    "lowrank_axpy_2d": ("src/repro_torch/kernels/csrc/lowrank.cu",
+                        "src/repro/kernels/lowrank.py:92"),
 }
 # the CUDA symbols of those kernels, for the profile
 KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "sign_pack_kernel",
                   "unpack_sign_axpy_kernel", "sparse_select_pack_kernel",
-                  "sparse_scatter_axpy_kernel")
+                  "sparse_scatter_axpy_kernel", "lowrank_project_kernel",
+                  "lowrank_axpy_kernel")
 
 
 def max_abs_err(a, b) -> float:
@@ -151,8 +169,9 @@ def check(ref, rec: dict, name: str, label: str, got, want, what: str) -> None:
 def log_times(rec: dict, names) -> None:
     for name in names:
         r = rec[name]
+        lib = f", library {r['library_ms']:.4f} ms" if r.get("library_ms") is not None else ""
         log(f"time {name} lm_head: kernel {r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}), plain {r['plain_ms']:.2f} ms")
+            f"({r['bound'][1]}), plain {r['plain_ms']:.2f} ms{lib}")
 
 
 def phase_kernels(torch, q, ref, rec: dict, bits: int = 4) -> None:
@@ -294,6 +313,91 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# (label, lead batch, rows, n) of the lowrank folds: whole leaves of the
+# full-width tree with their 8-slab lead batch, and a ragged fold
+LOWRANK_FOLDS = (("lm_head", 8, 2048, 49408), ("embed", 8, 49408, 2048), ("wk", 8, 2048, 512),
+                 ("ln", 8, 1, 2048), ("ragged", 3, 37, 384))
+LOWRANK_RANKS = (1, 2, 4, 128)
+
+
+def phase_kernels_lowrank(torch, lk, ref, rec: dict) -> None:
+    """K7a and K7b vs plain version on whole-leaf folds, cold (one factor at
+    batch stride 0) and warm (a factor per slab), at every rank of
+    ``LOWRANK_RANKS``; each rank-2 case is timed beside its bound, its plain
+    version and the PyTorch call that computes the same function."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    for label, batch, rows, n in LOWRANK_FOLDS:
+        m = torch.randn((batch, rows, n), generator=gen, device=dev) * 0.02
+        acc = torch.randn((batch, rows, n), generator=gen, device=dev)
+        m[0, 0].zero_()                                # zeros, -0.0 and a NaN
+        m[0, min(1, rows - 1), :7] = -0.0
+        m[1, min(2, rows - 1), 5] = float("nan")
+        acc[0, min(1, rows - 1), :5] = -0.0
+        acc[2, min(2, rows - 1), 3] = float("nan")
+        for r in LOWRANK_RANKS:
+            v0 = torch.rand((n, r), generator=gen, device=dev) - 0.5
+            v0[0, 0] = -0.0
+            vw = torch.rand((batch, n, r), generator=gen, device=dev) - 0.5
+            for mode, v in (("cold", v0.expand(batch, n, r)), ("warm", vw)):
+                if mode == "cold" and label not in ("lm_head", "embed"):
+                    continue
+                what = f"{batch}x{rows}x{n}, rank {r}, {mode}"
+                p = lk.lowrank_project_2d(m, v)
+                torch.cuda.synchronize()
+                check(ref, rec, "lowrank_project_2d", label, (p,),
+                      (ref.lowrank_project_2d_ref(m, v),), what)
+                p[0, 0].zero_()
+                p[0, min(1, rows - 1)] = -0.0
+                for aw, w in ((1.0, 1.0), (0.5, -2.0)):
+                    out = lk.lowrank_axpy_2d(p, v, acc, weight=w, acc_weight=aw)
+                    torch.cuda.synchronize()
+                    check(ref, rec, "lowrank_axpy_2d", label, (out,),
+                          (ref.lowrank_axpy_2d_ref(p, v, acc, weight=w, acc_weight=aw),),
+                          f"{what}, aw={aw}, w={w}")
+                    del out
+                if r == 2:                              # the main path's rank
+                    lowrank_times(torch, lk, ref, rec, label, mode, m, v, p, acc)
+                del p
+            del v0, vw
+        del m, acc
+        torch.cuda.empty_cache()
+
+
+def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc) -> None:
+    """CUDA-event times of K7a and K7b at one rank-2 fold; the warm
+    ``lm_head`` fold, the main path's largest, fills ``rec``."""
+    batch, rows, n = m.shape
+    r = v.shape[-1]
+    out = torch.empty_like(acc)
+    vt = v.mT
+    v_bytes = (n if mode == "cold" else batch * n) * r * 4
+    t = {
+        "K7a": time_ms(torch, lambda: lk.lowrank_project_2d(m, v), 10),
+        "K7a plain": time_ms(torch, lambda: ref.lowrank_project_2d_ref(m, v), 2, 1),
+        "K7a library": time_ms(torch, lambda: torch.bmm(m, v), 10),
+        "K7b": time_ms(torch, lambda: lk.lowrank_axpy_2d(
+            p, v, acc, weight=1.0, acc_weight=1.0, out=out), 10),
+        "K7b plain": time_ms(torch, lambda: ref.lowrank_axpy_2d_ref(
+            p, v, acc, weight=1.0, acc_weight=1.0), 2, 1),
+        "K7b library": time_ms(torch, lambda: torch.baddbmm(acc, p, vt, beta=1.0, alpha=1.0), 10),
+    }
+    el = batch * rows * n
+    b7a = bound(el * 4 + v_bytes + batch * rows * r * 4, 2 * el * r)
+    b7b = bound(batch * rows * r * 4 + v_bytes + 2 * el * 4, (2 * r + 2) * el)
+    log(f"time lowrank {label} {mode} rank {r}: " + ", ".join(
+        f"{k} {val:.4f} ms" for k, val in t.items()) +
+        f"; bound K7a {b7a[0]:.4f} ms ({b7a[1]}), K7b {b7b[0]:.4f} ms ({b7b[1]})")
+    if label == "lm_head" and mode == "warm":
+        rec["lowrank_project_2d"].update(ms=t["K7a"], plain_ms=t["K7a plain"],
+                                         library_ms=t["K7a library"], bound=b7a)
+        rec["lowrank_axpy_2d"].update(ms=t["K7b"], plain_ms=t["K7b plain"],
+                                      library_ms=t["K7b library"], bound=b7b)
+        log_times(rec, ("lowrank_project_2d", "lowrank_axpy_2d"))
+    del out
+
+
 def max_shift_residual(torch, tree_leaves, base, others: dict) -> float:
     """max |roll(base, s) - others[s]| over every leaf and shift."""
     worst = 0.0
@@ -303,6 +407,7 @@ def max_shift_residual(torch, tree_leaves, base, others: dict) -> float:
     return worst
 
 
+ADAPTIVE_SPEC = "adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4"
 # (algo, wire, steps, {kernel: launches a step}); the other kernels launch none
 TRAIN_RUNS = (
     ("dcd", "quant:4", 3, {"quantize_pack_2d": 12, "unpack_dequant_axpy_2d": 36}),
@@ -311,25 +416,58 @@ TRAIN_RUNS = (
     ("deepsqueeze", "sign", 2, {"sign_pack_2d": 12, "unpack_sign_axpy_2d": 48}),
     ("choco", "sparse:0.05:topk", 2, {"sparse_select_pack_2d": 12,
                                       "sparse_scatter_axpy_2d": 36}),
+    # lowrank: 11 matrix leaves (final_ln, (n, d), rides fp16); adaptive:
+    # embed by its override, ln1/ln2/final_ln (2048 per replica) small
+    ("dcd", "lowrank:2:warm", 3, {"lowrank_project_2d": 11, "lowrank_axpy_2d": 33}),
+    ("dcd", "lowrank:2", 2, {"lowrank_project_2d": 11, "lowrank_axpy_2d": 33}),
+    ("choco", ADAPTIVE_SPEC, 2, {"quantize_pack_2d": 1, "unpack_dequant_axpy_2d": 3,
+                                 "lowrank_project_2d": 8, "lowrank_axpy_2d": 24}),
 )
 # algo -> (the tree every shifted copy tracks, prefix of the shifted copies)
 INVARIANTS = {"dcd": (None, "rep"), "ecd": ("tilde_self", "tilde"),
               "choco": ("hat_self", "hat")}
 
 
+def warm_factor_snapshots(train_mod, wire):
+    """Wrap launch/train.py's step builder so that each step's warm factors are
+    kept (a copy per step); returns (snapshots, undo)."""
+    real = train_mod.make_dist_train_step
+    snaps = []
+
+    def traced(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def step_and_snapshot(state, batch):
+            out = step(state, batch)
+            snaps.append({k: f.clone() for k, f in state.aux[wire.aux_name].items()})
+            return out
+        return step_and_snapshot
+
+    train_mod.make_dist_train_step = traced
+    return snaps, lambda: setattr(train_mod, "make_dist_train_step", real)
+
+
 def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> dict:
     from repro_torch.configs import get_config
-    from repro_torch.launch.train import TrainConfig, run_training
+    from repro_torch.distributed.wire import make_wire_format
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import TrainConfig
     from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
     tc = TrainConfig(arch="granite-3-2b", algo=algo, wire=wire, gamma=0.5, topology="ring",
                      n_nodes=8, steps=steps, log_every=1, reduced=False)
     tag = f"{algo} {wire}"
+    wf = make_wire_format(wire)
+    snaps, undo = warm_factor_snapshots(train_mod, wf) if wf.stateful else ([], None)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     q.reset_launch_counts()
-    hist = run_training(cfg, tc, device="cuda")
+    try:
+        hist = train_mod.run_training(cfg, tc, device="cuda")
+    finally:
+        if undo is not None:
+            undo()
     counts = q.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     state = hist["state"]
@@ -342,6 +480,27 @@ def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> d
     log(f"train {tag}: step_s={[round(s, 4) for s in hist['step_s']]} "
         f"peak_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
     log(f"train {tag}: launches {counts}")
+    nbytes = wf.wire_nbytes(state.params)
+    log(f"train {tag}: wire_nbytes per step {nbytes} B for the {tc.n_nodes} nodes' payloads "
+        f"({nbytes // tc.n_nodes} B a node, {8 * nbytes / (tc.n_nodes * per_node):.4f} bits "
+        f"an element)")
+    if wf.stateful:
+        # every non-zero factor must move each step; a zero factor is a fixed
+        # point of the power iteration (as in the JAX package), reached when
+        # a round's difference is exactly zero
+        prev = wf.init_aux(state.params)
+        assert len(snaps) == steps, len(snaps)
+        changed, live = [], []
+        for snap in snaps:
+            keys = [k for k in prev if bool(prev[k].any())]
+            changed.append(sum(not torch.equal(prev[k], snap[k]) for k in keys))
+            live.append(len(keys))
+            prev = snap
+        zero = [k for k in prev if not bool(prev[k].any())]
+        log(f"train {tag}: warm factors ({len(prev)} leaves) changed each step: {changed} "
+            f"of the non-zero {live}; zero after the last step: leaves {zero}")
+        assert changed == live and live[0] == len(prev), (changed, live)
+        del snaps, prev
     assert all(math.isfinite(l) for l in hist["losses"]), hist["losses"]
     assert all(math.isfinite(c) for c in hist["consensus"]), hist["consensus"]
     assert n_leaves == 12, n_leaves
@@ -380,7 +539,7 @@ def phase_profile(torch, algo: str, wire: str, steps: int = 2) -> None:
     opt = adamw(weight_decay=0.01)
     step = make_dist_train_step(model.loss, algo, opt, wire, 8,
                                 linear_warmup_cosine(3e-3, 20, 300), gamma=0.5)
-    state = init_dist_state(algo, model.init(0, device="cuda"), 8, opt)
+    state = init_dist_state(algo, model.init(0, device="cuda"), 8, opt, wire=wire)
     dc = DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=32, n_shards=8, seed=0)
     state, _ = step(state, stacked_node_batches(dc, 0, device="cuda"))
     torch.cuda.synchronize()
@@ -405,6 +564,9 @@ def phase_profile(torch, algo: str, wire: str, steps: int = 2) -> None:
     ours = [e for e in ranked if any(sym in e.key for sym in KERNEL_SYMBOLS)]
     for e in ranked[:12] + [e for e in ours if e not in ranked[:12]]:
         log(f"profile   {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} launches  {e.key[:100]}")
+    for e in ours:
+        log(f"profile {algo} {wire}: {e.key[:40]} {dev_us(e) / 1e3 / steps:.3f} ms a step "
+            f"({e.count / steps:g} launches a step), of {busy / steps * 1e3:.1f} ms busy a step")
 
 
 def phase_reference(torch, algo: str, wire: str) -> None:
@@ -427,7 +589,8 @@ def phase_reference(torch, algo: str, wire: str) -> None:
     for dev in ("cpu", "cuda"):
         opt = sgd()
         step = make_dist_train_step(model.loss, algo, opt, wire, 4, constant(lr), gamma=0.5)
-        state = init_dist_state(algo, tree_map(lambda p: p.to(dev), params_cpu), 4, opt)
+        state = init_dist_state(algo, tree_map(lambda p: p.to(dev), params_cpu), 4, opt,
+                                wire=wire)
         losses = []
         for b in batches:
             state, met = step(state, {k: v.to(dev) for k, v in b.items()})
@@ -444,7 +607,8 @@ def phase_reference(torch, algo: str, wire: str) -> None:
     # bf16 matmuls round differently on the two devices, so losses agree to
     # bf16 accuracy; 4-bit stochastic rounding turns those ~1% gradient
     # differences into occasional one-level code flips of the payload, and
-    # the sign codec into sign flips of near-zero differences
+    # the sign codec into sign flips of near-zero differences; the low-rank
+    # factors move with the gradients they project
     assert dl <= 1e-3 and rel <= 0.2, (dl, rel)
 
 
@@ -457,6 +621,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels import lowrank as lk
     from repro_torch.kernels import quant as q
     from repro_torch.kernels import ref
 
@@ -470,19 +635,22 @@ def main() -> int:
     phase_kernels(torch, q, ref, rec)
     phase_kernels_sign(torch, q, ref, rec)
     phase_kernels_sparse(torch, q, ref, rec)
+    phase_kernels_lowrank(torch, lk, ref, rec)
     totals = {name: 0 for name in KERNELS}
     for algo, wire, steps, per_step in TRAIN_RUNS:
         for name, c in phase_train(torch, algo, wire, steps, per_step, q).items():
             totals[name] += c
     phase_profile(torch, "dcd", "quant:4")
     phase_profile(torch, "choco", "sign")
+    phase_profile(torch, "dcd", "lowrank:2:warm")
     phase_reference(torch, "dcd", "quant:4")
     phase_reference(torch, "choco", "sign")
+    phase_reference(torch, "dcd", "lowrank:2:warm")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": totals[name], "max_abs_err": rec[name]["err"],
                 "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],
                 "bound_ms": rec[name]["bound"][0], "bound_by": rec[name]["bound"][1],
-                "library_ms": None}
+                "library_ms": rec[name].get("library_ms")}
                for name, (src, replaces) in KERNELS.items()]
     assert all(k["launches"] > 0 for k in kernels), totals
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -26,10 +26,19 @@ words and scales, as the JAX runtime's collective-permute moves them.
 
 Unlike the JAX step, which is pure and maps whole trees, a round here walks
 the leaves in JAX flatten order and finishes each leaf — mix, optimizer
-update, encode (kernel K1), decode into params and replicas (kernel K2) —
-before it starts the next, updating params, replicas, estimates and the
-optimizer moments IN PLACE.  At full width a whole-tree temporary is
-gigabytes; a leaf-at-a-time round holds a few leaf-sized ones.
+update, encode (a send kernel: K1, K5a, K6 or K7a), decode into params and
+replicas (a receive kernel: K2, K5b, K6c or K7b) — before it starts the
+next, updating params, replicas, estimates and the optimizer moments IN
+PLACE.  At full width a whole-tree temporary is gigabytes; a leaf-at-a-time
+round holds a few leaf-sized ones.
+
+Each leaf is encoded and decoded through ``wire.route(path, shape)``, its
+sub-format under ``adaptive`` and the wire itself otherwise.  A stateful
+wire (``lowrank:<r>:warm``) keeps its codec state in ``aux[wire.aux_name]``
+(``init_dist_state(..., wire=)``), and the round encodes leaf ``li`` with
+``wire.encode_leaf_stateful``, which advances that leaf's warm factor in
+place — the same factor, round by round, as the JAX ``encode_tree``
+(``decentralized.py:365``).
 """
 from __future__ import annotations
 
@@ -63,10 +72,14 @@ def _resolve_plan(plan) -> GossipPlan:
     return plan if isinstance(plan, GossipPlan) else GossipPlan.ring(int(plan))
 
 
-def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer) -> DistState:
+def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
+                    wire=None) -> DistState:
     """Stack ``params_single`` over the plan's nodes; one replica (DCD) or
     estimate (ECD, CHOCO) tree per shift, each its own copy of the stacked
-    params, or DeepSqueeze's zero residual."""
+    params, or DeepSqueeze's zero residual.  ``wire`` (a
+    :class:`WireFormat` or spec) is needed when it is stateful
+    (``lowrank:<r>:warm``): its initial codec state goes under
+    ``aux[wire.aux_name]``.  Stateless wires add nothing."""
     if algo not in ALGOS:
         raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
     plan = _resolve_plan(plan)
@@ -87,6 +100,10 @@ def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer) -> Dist
         aux.update({f"hat{s:+d}": copy() for s in plan.shift_union})
     else:
         aux = {"err_self": tree_map(torch.zeros_like, X)}
+    if wire is not None:
+        wire = make_wire_format(wire)
+        if wire.stateful:
+            aux[wire.aux_name] = wire.init_aux(X)
     return DistState(params=X, opt=opt.init(X), aux=aux, step=0)
 
 
@@ -147,89 +164,105 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
     wire: WireFormat = make_wire_format(wire)
     plan = make_gossip_plan(_resolve_plan(plan))
     salt = _SALT[algo]
+    wire_aux_key = wire.aux_name if wire.stateful else None
+
+    def _leaves(state: DistState):
+        """The params' leaves in flatten order with each one's wire format."""
+        items = leaf_items(state.params)
+        return [x for _, x in items], [wire.route(p, x.shape) for p, x in items]
+
+    def _encode(state: DistState, li: int, lw: WireFormat, z: torch.Tensor) -> Payload:
+        seed = leaf_seed(state.step, salt, li)
+        if wire_aux_key is None:
+            return lw.encode(z, seed)
+        if wire_aux_key not in state.aux:
+            raise KeyError(f"the {wire.name} wire is stateful: build the state with "
+                           f"init_dist_state(..., wire=) to add {wire_aux_key!r}")
+        payload, _ = wire.encode_leaf_stateful(z, seed, li, state.aux[wire_aux_key])
+        return payload
 
     def _dcd_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        X_items = leaf_items(state.params)
-        m, v = _moment_leaves(state.opt, len(X_items))
+        X, lws = _leaves(state)
+        m, v = _moment_leaves(state.opt, len(X))
         reps = {s: tree_leaves(state.aux[f"rep{s:+d}"]) for s in plan.shift_union}
-        for li, (_, x) in enumerate(X_items):
+        for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None        # free each gradient once used
             z = mix_leaf(plan, x, {s: reps[s][li] for s in plan.shift_list})
             z.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
             del g
             z.sub_(x)                                            # Z = X_half - X
-            payload = wire.encode(z, leaf_seed(state.step, salt, li))
+            payload = _encode(state, li, lw, z)
             del z
             # receive side: one fused kernel per leaf and per tree; every
             # replica advances with the rolled words, so rep{s} == roll(X, s)
-            wire.decode_axpy_(payload, x, 1.0)
+            lw.decode_axpy_(payload, x, 1.0)
             for s in plan.shift_union:
-                wire.decode_axpy_(_roll_payload(payload, s), reps[s][li], 1.0)
+                lw.decode_axpy_(_roll_payload(payload, s), reps[s][li], 1.0)
 
     def _ecd_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
         s_t = np.float32(state.step + 1)
         za, zb = float(np.float32(1.0) - np.float32(0.5) * s_t), float(np.float32(0.5) * s_t)
         blend = float(np.float32(2.0) / s_t)
         est_decay = float(np.float32(1.0) - np.float32(2.0) / s_t)
-        X_items = leaf_items(state.params)
-        m, v = _moment_leaves(state.opt, len(X_items))
+        X, lws = _leaves(state)
+        m, v = _moment_leaves(state.opt, len(X))
         tilde_self = tree_leaves(state.aux["tilde_self"])
         tildes = {s: tree_leaves(state.aux[f"tilde{s:+d}"]) for s in plan.shift_union}
-        for li, (_, x) in enumerate(X_items):
+        for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
             x_next = mix_leaf(plan, tilde_self[li], {s: tildes[s][li] for s in plan.shift_list})
             x_next.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
             del g
             z = za * x + zb * x_next
-            payload = wire.encode(z, leaf_seed(state.step, salt, li))
+            payload = _encode(state, li, lw, z)
             del z
             # est_decay*tilde + blend*decode in one fused pass per tree
-            wire.decode_axpy_(payload, tilde_self[li], blend, est_decay)
+            lw.decode_axpy_(payload, tilde_self[li], blend, est_decay)
             for s in plan.shift_union:
-                wire.decode_axpy_(_roll_payload(payload, s), tildes[s][li], blend, est_decay)
+                lw.decode_axpy_(_roll_payload(payload, s), tildes[s][li], blend, est_decay)
             x.copy_(x_next)
 
     def _choco_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        X_items = leaf_items(state.params)
-        m, v = _moment_leaves(state.opt, len(X_items))
+        X, lws = _leaves(state)
+        m, v = _moment_leaves(state.opt, len(X))
         hat_self = tree_leaves(state.aux["hat_self"])
         hats = {s: tree_leaves(state.aux[f"hat{s:+d}"]) for s in plan.shift_union}
-        for li, (_, x) in enumerate(X_items):
+        for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
             x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
             del g
             z = x - hat_self[li]                                 # Z = X_half - hat_self
-            payload = wire.encode(z, leaf_seed(state.step, salt, li))
+            payload = _encode(state, li, lw, z)
             del z
             # every node decodes the words it sent, so hat_self stays equal
             # to each neighbour's hat{s} of it: hat{s} == roll(hat_self, s)
-            wire.decode_axpy_(payload, hat_self[li], 1.0)
+            lw.decode_axpy_(payload, hat_self[li], 1.0)
             for s in plan.shift_union:
-                wire.decode_axpy_(_roll_payload(payload, s), hats[s][li], 1.0)
+                lw.decode_axpy_(_roll_payload(payload, s), hats[s][li], 1.0)
             del payload
             mixed = mix_leaf(plan, hat_self[li], {s: hats[s][li] for s in plan.shift_list})
             mixed.sub_(hat_self[li])
             x.add_(mixed.mul_(gamma32))                          # X_half + gamma*(mix - hat)
 
     def _deepsqueeze_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        X_items = leaf_items(state.params)
-        m, v = _moment_leaves(state.opt, len(X_items))
+        X, lws = _leaves(state)
+        m, v = _moment_leaves(state.opt, len(X))
         errs = tree_leaves(state.aux["err_self"])
-        for li, (_, x) in enumerate(X_items):
+        for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
             x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
             del g
             err = errs[li].add_(x)                               # V = X_half + err
-            payload = wire.encode(err, leaf_seed(state.step, salt, li))
-            d_self = wire.decode_axpy_(payload, torch.zeros_like(x), 1.0)
+            payload = _encode(state, li, lw, err)
+            d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
             # each neighbour's payload is decoded straight into the mix with
             # its weight: acc + w*dec(roll(P, s)), the JAX plan_mix's
             # ``out + w*nbr`` of a zero-based decode, without the buffer
             mixed = plan.self_weight * d_self
             for s, w in plan.shifts:
-                wire.decode_axpy_(_roll_payload(payload, s), mixed, w)
+                lw.decode_axpy_(_roll_payload(payload, s), mixed, w)
             # the residual last: an identity payload is the V buffer itself
-            wire.decode_axpy_(payload, err, -1.0)                # err = V - dec(V)
+            lw.decode_axpy_(payload, err, -1.0)                  # err = V - dec(V)
             del payload
             x.add_(mixed.sub_(d_self))                           # X_half + (mix - D_self)
 

@@ -1,12 +1,13 @@
-"""The gossip wire-format protocol: quant, sign, sparse, fp16 and identity.
+"""The gossip wire-format protocol: quant, sign, sparse, fp16, identity,
+lowrank and the adaptive per-leaf combinator.
 
-The port of the JAX package's ``distributed/wire.py`` for those five
-formats: the same per-leaf protocol (``encode`` / ``decode`` /
-``decode_axpy``), the same (step, salt, leaf) seeding and the same blocked
-payload containers, so a payload encoded here is bit-equal to the JAX
-package's for the same leaf and counter (the sign codec's per-block scale
-excepted: it is a sum, taken here in the kernel's fixed order, and agrees
-with the JAX package's ``jnp.mean`` to rounding).
+The port of the JAX package's ``distributed/wire.py``: the same per-leaf
+protocol (``encode`` / ``decode`` / ``decode_axpy``), the same (step, salt,
+leaf) seeding and the same blocked payload containers, so a payload encoded
+here is bit-equal to the JAX package's for the same leaf and counter (the
+sign codec's per-block scale and the low-rank factors excepted: they are
+sums, taken here in the kernels' fixed orders, and agree with the JAX
+package to rounding).
 
 * ``encode(leaf, seed)`` blocks the LAST dim: the leaf (lead..., d) is padded
   to whole blocks and folded row-major to (rows, block).  With
@@ -28,20 +29,37 @@ with the JAX package's ``jnp.mean`` to rounding).
   arrays; the port updates params, replicas and estimates in place, because
   at full width every leaf-sized temporary costs gigabytes.
 
+* ``lowrank`` is not blocked: a stacked matrix leaf (lead..., m, n) ships
+  rank-r factors of one power-iteration step (:class:`LowRankWire`), its
+  projection through K7a :func:`~repro_torch.kernels.lowrank.lowrank_project_2d`
+  and its receive through K7b
+  :func:`~repro_torch.kernels.lowrank.lowrank_axpy_2d` behind
+  ``n % 128 == 0``; ``lowrank:<r>:warm`` carries the right factor across
+  rounds as codec state (:attr:`WireFormat.stateful`).
+* ``adaptive`` routes each leaf to a sub-format by path and size
+  (:class:`AdaptiveWire`); the rounds ask :meth:`WireFormat.route` for a
+  leaf's format, which is the wire itself for every other format.
+
 Payloads: ``quant`` ``{"codes": (lead..., nblk, W) int32 words | (lead...,
 nblk, block) int8, "scale": (lead..., nblk, 1) f32}``; ``sign`` ``{"codes":
 (lead..., nblk, block/32) int32 words, "scale": (lead..., nblk, 1) f32}``;
 ``sparse`` ``{"values": (lead..., nblk, k) f32 | f16, "idx": (lead..., nblk,
-words) int32}``; ``fp16`` and ``identity`` ``{"values": leaf}``.
+words) int32}``; ``lowrank`` ``{"p": (lead..., m, r) f32, "v": (lead..., n,
+r) f32}`` or, for ``ndim <= 2``, ``{"values": leaf f16}``; ``fp16`` and
+``identity`` ``{"values": leaf}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import fnmatch
+import math
 from typing import Any, Callable, ClassVar, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.lowrank import lowrank_axpy_2d, lowrank_project_2d
 from repro_torch.kernels.quant import (
     quantize_pack_2d,
     sign_pack_2d,
@@ -57,7 +75,9 @@ from repro_torch.kernels.ref import (
     aligned_block,
     assert_packable,
     dequantize_2d_ref,
+    _factor_matmul,
     levels_for,
+    lowrank_orthonormalize_ref,
     packed_auto,
     quantize_pack_2d_ref,
     sign_pack_2d_ref,
@@ -191,33 +211,83 @@ class WireFormat:
         ``block % 128 == 0``."""
         return block % 128 == 0
 
+    def route(self, path: str, shape) -> "WireFormat":
+        """The format that carries the leaf at ``path`` (``/``-joined, as
+        :func:`~repro_torch.tree.leaf_items` names it) of stacked ``shape``:
+        the wire itself, but for :class:`AdaptiveWire`."""
+        return self
+
+    # --- optional cross-step codec state (per-leaf aux channel) -----------
+    @property
+    def stateful(self) -> bool:
+        """True when the codec carries per-leaf state across rounds (the
+        warm factors of ``lowrank:<r>:warm``).  ``init_dist_state(...,
+        wire=)`` then keeps :meth:`init_aux`'s dict under :attr:`aux_name`
+        in the state's aux, and the rounds encode through
+        :meth:`encode_leaf_stateful`."""
+        return False
+
+    @property
+    def aux_name(self) -> str:
+        """The aux key the codec state rides under."""
+        return f"wire_{self.name}"
+
+    def init_aux(self, tree: Any) -> Dict[str, torch.Tensor]:
+        """Initial codec state for ``tree`` (stacked leaves); none for a
+        stateless format."""
+        return {}
+
+    def encode_leaf_stateful(self, leaf: torch.Tensor, seed: int, leaf_index: int,
+                             state: Dict[str, torch.Tensor]):
+        """Encode the leaf of flatten index ``leaf_index`` with the codec
+        state ``state`` (the dict under :attr:`aux_name`), which it updates IN
+        PLACE for that leaf; returns ``(payload, state)``.  Stateless formats
+        encode as :meth:`encode` and leave ``state`` as it is."""
+        return self.encode(leaf, seed), state
+
     # --- tree-level plumbing (one step/salt/leaf seeding path) ------------
     def encode_tree(self, tree: Any, step: int, salt: int):
         """tree of (n, ...) leaves -> (paths, [payload per leaf]), seeded by
-        the leaf's index in JAX flatten order."""
+        the leaf's index in JAX flatten order, each leaf through its
+        :meth:`route`."""
         items = leaf_items(tree)
         return ([p for p, _ in items],
-                [self.encode(leaf, leaf_seed(step, salt, li))
-                 for li, (_, leaf) in enumerate(items)])
+                [self.route(p, leaf.shape).encode(leaf, leaf_seed(step, salt, li))
+                 for li, (p, leaf) in enumerate(items)])
+
+    def encode_tree_stateful(self, tree: Any, step: int, salt: int,
+                             aux: Dict[str, torch.Tensor]):
+        """Like :meth:`encode_tree`, threading the codec state: returns
+        ``(paths, payloads, new_aux)``; ``aux`` itself is left as it is.  A
+        stateless format passes ``aux`` through."""
+        if not self.stateful:
+            return (*self.encode_tree(tree, step, salt), aux)
+        items = leaf_items(tree)
+        state, payloads = dict(aux), []
+        for li, (_, leaf) in enumerate(items):
+            payload, state = self.encode_leaf_stateful(leaf, leaf_seed(step, salt, li), li,
+                                                       state)
+            payloads.append(payload)
+        return [p for p, _ in items], payloads, state
 
     def decode_tree(self, paths, payloads, like_tree: Any) -> Any:
         likes = [leaf for _, leaf in leaf_items(like_tree)]
-        return tree_from_items([(p, self.decode(pl, like))
+        return tree_from_items([(p, self.route(p, like.shape).decode(pl, like))
                                 for p, pl, like in zip(paths, payloads, likes)])
 
     def decode_axpy_tree(self, paths, payloads, acc_tree: Any, weight,
                          acc_weight=1.0) -> Any:
         accs = [leaf for _, leaf in leaf_items(acc_tree)]
-        return tree_from_items([(p, self.decode_axpy(pl, acc, weight, acc_weight))
-                                for p, pl, acc in zip(paths, payloads, accs)])
+        return tree_from_items([(p, self.route(p, acc.shape).decode_axpy(
+            pl, acc, weight, acc_weight)) for p, pl, acc in zip(paths, payloads, accs)])
 
     # --- wire accounting from the real containers -------------------------
     def wire_nbytes(self, tree: Any) -> int:
         """Wire bytes of one encoded payload of ``tree``, from the containers
         the encoder builds on ``meta`` tensors (shapes only, nothing computed)."""
-        metas = [torch.empty(leaf.shape, dtype=torch.float32, device="meta")
-                 for _, leaf in leaf_items(tree)]
-        return sum(payload_nbytes(self.encode(m, 0)) for m in metas)
+        return sum(payload_nbytes(self.route(p, leaf.shape).encode(
+            torch.empty(leaf.shape, dtype=torch.float32, device="meta"), 0))
+            for p, leaf in leaf_items(tree))
 
     def wire_bits_per_element(self, shape=None) -> float:
         n = 1
@@ -451,6 +521,351 @@ class IdentityWire(WireFormat):
         return payload["values"].to(like.dtype)
 
 
+# ------------------------------------------------------------ low-rank codec
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """``torch.matmul`` in full f32 inside, whatever the global TF32 setting
+    (``torch.backends.cuda.matmul.allow_tf32``) is outside: the factors'
+    re-projection keeps f32 like the JAX package's ``dot_general``."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _batch_dot(a: torch.Tensor, b: torch.Tensor, a_dim: int, b_dim: int) -> torch.Tensor:
+    """Contract ``a``'s axis ``a_dim`` with ``b``'s ``b_dim`` (each -1 or -2)
+    in full f32, batching over the shared leading dims: ``(..., free_a,
+    free_b)``, as the JAX package's ``_batch_dot`` (``wire.py:692``)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    a = a.mT if a_dim == -2 else a
+    b = b.mT if b_dim == -1 else b
+    with _full_f32_matmul():
+        return torch.matmul(a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LowRankWire(WireFormat):
+    """Rank-r power-iteration wire format (PowerGossip).  A matrix leaf, a
+    stacked ``(lead..., m, n)`` leaf with ``ndim >= 3``, ships one
+    power-iteration step of its trailing (m, n) view as rank-``r`` factors::
+
+        P  = M @ V0          (K7a, the sum over n in its fixed order)
+        P  = MGS(P)          (columns orthonormalized, safe-norm'd)
+        Vt = M^T @ P         (re-projection, torch.matmul in full f32)
+        payload = {p: (..., m, r) f32, v: (..., n, r) f32}
+        decode  = P @ Vt^T   (K7b fuses it into the receive axpy)
+
+    ``32*r*(m+n)`` wire bits against the dense ``32*m*n``.  Leaves with
+    ``ndim <= 2`` ride the fp16 container.  ``warm=False`` seeds ``V0`` from
+    the (step, salt, leaf) counter every round, one (n, r) start shared by
+    every node and layer; ``warm=True`` carries each matrix leaf's last
+    ``Vt`` as codec state under ``wire_lowrank:<r>`` (:meth:`init_aux`,
+    :meth:`encode_leaf_stateful`), one more subspace iteration a round.
+    The port of the JAX package's ``LowRankWire`` (``wire.py:707``)."""
+
+    rank: int = 2
+    warm: bool = False
+
+    name: ClassVar[str] = "lowrank"
+
+    def __post_init__(self):
+        if not 1 <= int(self.rank) <= 128:
+            raise ValueError(f"lowrank rank must be in 1..128, got {self.rank}")
+        object.__setattr__(self, "rank", int(self.rank))
+        object.__setattr__(self, "warm", bool(self.warm))
+
+    @property
+    def packed(self) -> bool:
+        """The factors have a fused receive kernel (K7b, behind the same
+        128-lane gate); the containers are plain f32."""
+        return True
+
+    @property
+    def wire_format(self) -> str:
+        return f"lowrank-r{self.rank}-{'warm' if self.warm else 'cold'}-f32"
+
+    @property
+    def stateful(self) -> bool:
+        return self.warm
+
+    @property
+    def aux_name(self) -> str:
+        return f"wire_lowrank:{self.rank}"
+
+    @staticmethod
+    def _eligible(shape) -> bool:
+        """Matrix routing by STACKED shape: ``(lead..., m, n)`` needs
+        ``ndim >= 3``, so a stacked 1-D param ``(nodes, d)`` is not a matrix
+        (a stacked ``(nodes, 1, d)`` norm is, with m = 1)."""
+        return len(shape) >= 3
+
+    def _factor_init(self, n: int, seed: int, device) -> torch.Tensor:
+        """Seeded ``(n, r)`` start factor ``uniform_from_hash(i*r + c) - 0.5``,
+        bit-equal to the JAX package's; never zero."""
+        rows = torch.arange(n, dtype=torch.int64, device=device)
+        cols = torch.arange(self.rank, dtype=torch.int64, device=device)
+        idx = (rows[:, None] * self.rank + cols[None, :]) & MASK32
+        return uniform_from_hash(idx, int(seed) & MASK32) - 0.5
+
+    def _encode_leaf(self, leaf: torch.Tensor, v0: torch.Tensor):
+        """One power-iteration step of ``leaf``'s trailing (m, n) view against
+        ``v0`` ((n, r) shared start, or (lead..., n, r) warm factors).
+        Returns (payload, new right factor)."""
+        m = leaf.to(torch.float32)
+        lead, (rows, n) = m.shape[:-2], m.shape[-2:]
+        batch = math.prod(lead)
+        vb = v0.expand(batch, n, self.rank) if v0.dim() == 2 \
+            else v0.reshape(batch, n, self.rank)
+        p = lowrank_project_2d(m.reshape(batch, rows, n).contiguous(), vb)
+        p = lowrank_orthonormalize_ref(p.reshape(*lead, rows, self.rank))
+        vt = _batch_dot(m, p, -2, -2)
+        return {"p": p, "v": vt}, vt
+
+    # --- per-leaf protocol -------------------------------------------------
+    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+        """Cold-start encode (also the shapes-only accounting of the warm
+        format: the factor shapes do not depend on warmth)."""
+        if not self._eligible(leaf.shape):
+            return {"values": leaf.to(torch.float16)}
+        payload, _ = self._encode_leaf(leaf, self._factor_init(leaf.shape[-1], seed,
+                                                                leaf.device))
+        return payload
+
+    def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
+        if "values" in payload:
+            return payload["values"].to(like.dtype)
+        return _factor_matmul(payload["p"], payload["v"]).to(like.dtype)
+
+    def decode_axpy_(self, payload: Payload, acc: torch.Tensor, weight,
+                     acc_weight=1.0) -> torch.Tensor:
+        """One K7b launch per matrix leaf over its whole lead batch:
+        ``acc_weight*acc + weight*(P @ V^T)`` written back into ``acc``; the
+        dense reconstruction never exists.  The fp16 leaves and a last dim
+        off the 128-lane gate take the plain decode-then-axpy."""
+        if "values" in payload or not self._kernel_ok(acc.shape[-1]):
+            return super().decode_axpy_(payload, acc, weight, acc_weight)
+        if acc.dtype != torch.float32:
+            raise TypeError(f"the fused receive accumulates in float32, got {acc.dtype}")
+        lead, (rows, n) = acc.shape[:-2], acc.shape[-2:]
+        batch = math.prod(lead)
+        target = acc if acc.is_contiguous() else acc.contiguous()
+        a3 = target.view(batch, rows, n)
+        lowrank_axpy_2d(payload["p"].reshape(batch, rows, self.rank).contiguous(),
+                        payload["v"].reshape(batch, n, self.rank), a3,
+                        weight=weight, acc_weight=acc_weight, out=a3)
+        if target is not acc:
+            acc.copy_(target)
+        return acc
+
+    # --- cross-step codec state (the warm factors) --------------------------
+    def init_aux(self, tree: Any) -> Dict[str, torch.Tensor]:
+        """Warm factors for every matrix leaf of the stacked ``tree``, keyed by
+        flatten index: the cold factor at the fixed seed ``0x9E3779B9 ^
+        (li*101)``, one copy per lead slab.  Empty when cold."""
+        if not self.warm:
+            return {}
+        aux: Dict[str, torch.Tensor] = {}
+        for li, (_, leaf) in enumerate(leaf_items(tree)):
+            if self._eligible(leaf.shape):
+                f = self._factor_init(leaf.shape[-1], 0x9E3779B9 ^ (li * 101), leaf.device)
+                aux[str(li)] = f.expand(*leaf.shape[:-2], *f.shape).contiguous()
+        return aux
+
+    def encode_leaf_stateful(self, leaf: torch.Tensor, seed: int, leaf_index: int,
+                             state: Dict[str, torch.Tensor]):
+        """Warm: project the matrix leaf against ITS carried factor and put
+        the re-projected factor in its place in ``state``.  Cold formats and
+        fp16 leaves encode as :meth:`encode`."""
+        if not (self.warm and self._eligible(leaf.shape)):
+            return self.encode(leaf, seed), state
+        payload, vt = self._encode_leaf(leaf, state[str(leaf_index)])
+        state[str(leaf_index)] = vt
+        return payload, state
+
+    # --- accounting --------------------------------------------------------
+    def wire_bits_per_element(self, shape=None) -> float:
+        """From the factor containers on ``meta``: a 2-D ``(m, n)`` shape is
+        the un-stacked matrix, measured as ``(1, m, n)``; no shape gives a
+        1024 x 1024 matrix; 1-D shapes the fp16 figure."""
+        shape = (1, 1024, 1024) if shape is None else tuple(int(d) for d in shape)
+        if len(shape) == 2:
+            shape = (1,) + shape
+        leaf = torch.empty(shape if shape else (1,), dtype=torch.float32, device="meta")
+        return 8.0 * payload_nbytes(self.encode(leaf, 0)) / float(math.prod(shape))
+
+    @staticmethod
+    def parse_spec_args(args) -> Dict[str, Any]:
+        """``lowrank:<rank>[:warm]``: the bare literal ``warm`` sets the flag,
+        ``key=value`` args pass through, the one positional is the rank."""
+        kwargs: Dict[str, Any] = {}
+        pos = 0
+        for part in args:
+            for piece in part.split(","):
+                if not piece:
+                    continue
+                if piece == "warm":
+                    kwargs["warm"] = True
+                elif "=" in piece:
+                    key, val = piece.split("=", 1)
+                    kwargs[key] = _coerce(val)
+                else:
+                    if pos >= 1:
+                        raise ValueError(f"lowrank spec takes one positional arg (rank); "
+                                         f"unexpected {piece!r}")
+                    kwargs["rank"] = int(piece)
+                    pos += 1
+        return kwargs
+
+
+# --------------------------------------------------------- adaptive combinator
+
+def leaf_path_str(path) -> str:
+    """``blocks/attn/wk``-style leaf path: the keys joined by ``/``, the
+    naming of the JAX package's ``leaf_path_str`` and of
+    :func:`~repro_torch.tree.leaf_items` (a string is already one)."""
+    return path if isinstance(path, str) else "/".join(str(k) for k in path)
+
+
+def routed_size(shape) -> int:
+    """Per-replica element count of a stacked leaf, what ``adaptive``
+    thresholds compare against: the leading node axis is excluded; a 1-D
+    leaf is taken whole."""
+    shape = tuple(int(d) for d in shape)
+    if len(shape) > 1:
+        return math.prod(shape[1:])
+    return math.prod(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveWire(WireFormat):
+    """Per-leaf combinator: one wire format per leaf.  Routing, first
+    ``leaf.<pattern>=`` override whose fnmatch pattern matches the leaf's
+    ``/``-joined path, else by per-replica size (:func:`routed_size`): below
+    ``threshold`` through ``small``, the rest through ``large``::
+
+        adaptive:<threshold>[:small=<spec>][:large=<spec>][:leaf.<pat>=<spec>]*
+        adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4
+
+    Seeds, payloads and accounting are each leaf's sub-format's.  Nesting
+    is refused.  The per-leaf methods see no path and route by size alone;
+    the tree methods and the rounds (:meth:`route`) apply the overrides.
+    Not stateful, as in the JAX package: a warm ``lowrank`` sub-format
+    encodes cold here every round.  The port of ``wire.py:981``."""
+
+    threshold: int = 4096
+    small: Any = "fp16"            # WireFormat | spec str (normalized in init)
+    large: Any = "quant:4"
+    overrides: Tuple[Tuple[str, Any], ...] = ()   # ((fnmatch pattern, wire)..)
+
+    name: ClassVar[str] = "adaptive"
+
+    def __post_init__(self):
+        if int(self.threshold) < 0:
+            raise ValueError(f"adaptive threshold must be >= 0, got {self.threshold}")
+        object.__setattr__(self, "threshold", int(self.threshold))
+        for fld in ("small", "large"):
+            object.__setattr__(self, fld, self._sub(getattr(self, fld)))
+        ov = self.overrides
+        if isinstance(ov, dict):
+            ov = tuple(ov.items())
+        object.__setattr__(self, "overrides",
+                           tuple((str(pat), self._sub(w)) for pat, w in ov))
+
+    @staticmethod
+    def _sub(spec) -> WireFormat:
+        w = make_wire_format(spec)
+        if isinstance(w, AdaptiveWire):
+            raise ValueError("adaptive wire formats do not nest")
+        return w
+
+    # --- routing ----------------------------------------------------------
+    def route_size(self, shape) -> WireFormat:
+        return self.small if routed_size(shape) < self.threshold else self.large
+
+    def route(self, path: str, shape) -> WireFormat:
+        for pat, w in self.overrides:
+            if fnmatch.fnmatchcase(path, pat):
+                return w
+        return self.route_size(shape)
+
+    def leaf_wires(self, tree: Any) -> Tuple[Tuple[str, WireFormat], ...]:
+        """``(path, routed sub-format)`` per leaf in flatten order."""
+        return tuple((p, self.route(p, leaf.shape)) for p, leaf in leaf_items(tree))
+
+    # --- per-leaf protocol (size-routed: no path at this level) -----------
+    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+        return self.route_size(leaf.shape).encode(leaf, seed)
+
+    def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
+        return self.route_size(like.shape).decode(payload, like)
+
+    def decode_axpy_(self, payload: Payload, acc: torch.Tensor, weight,
+                     acc_weight=1.0) -> torch.Tensor:
+        return self.route_size(acc.shape).decode_axpy_(payload, acc, weight, acc_weight)
+
+    # --- accounting / display --------------------------------------------
+    def wire_bits_per_element(self, shape=None) -> float:
+        """With a shape: that leaf through its size-routed sub-format; with
+        none: the ``large`` route's figure."""
+        if shape is None:
+            return self.large.wire_bits_per_element()
+        return self.route_size(shape).wire_bits_per_element(shape)
+
+    @property
+    def packed(self) -> bool:
+        return self.small.packed or self.large.packed or \
+            any(w.packed for _, w in self.overrides)
+
+    @property
+    def wire_format(self) -> str:
+        ov = "".join(f";{pat}={w.wire_format}" for pat, w in self.overrides)
+        return (f"adaptive<{self.threshold};small={self.small.wire_format};"
+                f"large={self.large.wire_format}{ov}>")
+
+    @staticmethod
+    def parse_spec_args(args) -> Dict[str, Any]:
+        """Sub-specs contain ``:`` and ``,``, so every part that does not
+        start a reserved key (``threshold=``/``small=``/``large=``/
+        ``leaf.<pat>=``) is absorbed into the preceding key's sub-spec:
+        ``adaptive:4096:large=quant:4`` keeps the ``4`` with ``quant``."""
+        kwargs: Dict[str, Any] = {}
+        overrides: list = []
+        current: Optional[str] = None    # key whose sub-spec absorbs parts
+        pos = 0
+        for part in args:
+            key = part.split("=", 1)[0] if "=" in part else None
+            if key in ("threshold", "small", "large") or \
+                    (key is not None and key.startswith("leaf.")):
+                val = part.split("=", 1)[1]
+                if key.startswith("leaf."):
+                    overrides.append([key[len("leaf."):], val])
+                    current = "__override__"
+                elif key == "threshold":
+                    kwargs["threshold"] = int(val)
+                    current = None
+                else:
+                    kwargs[key] = val
+                    current = key
+            elif current == "__override__":
+                overrides[-1][1] += ":" + part
+            elif current is not None:
+                kwargs[current] += ":" + part
+            else:
+                if pos >= 1:
+                    raise ValueError(f"adaptive spec takes one positional arg (threshold); "
+                                     f"unexpected {part!r}")
+                kwargs["threshold"] = int(part)
+                pos += 1
+        if overrides:
+            kwargs["overrides"] = tuple((p, sp) for p, sp in overrides)
+        return kwargs
+
+
 def wire_spec(w: WireFormat) -> str:
     """Canonical spec string (inverse of :func:`make_wire_format`)."""
     if isinstance(w, QuantWire):
@@ -465,6 +880,13 @@ def wire_spec(w: WireFormat) -> str:
         return "fp16"
     if isinstance(w, IdentityWire):
         return "identity"
+    if isinstance(w, LowRankWire):
+        return f"lowrank:{w.rank}" + (":warm" if w.warm else "")
+    if isinstance(w, AdaptiveWire):
+        parts = [f"adaptive:{w.threshold}", f"small={wire_spec(w.small)}",
+                 f"large={wire_spec(w.large)}"]
+        parts += [f"leaf.{pat}={wire_spec(sub)}" for pat, sub in w.overrides]
+        return ":".join(parts)
     raise TypeError(f"no canonical spec for wire format {w!r}")
 
 
@@ -475,6 +897,8 @@ WIRE_FORMATS: Dict[str, Tuple[Callable[..., WireFormat], Tuple[str, ...]]] = {
     "sign": (SignWire, ("scale", "block")),
     "fp16": (Fp16Wire, ()),
     "identity": (IdentityWire, ()),
+    "lowrank": (LowRankWire, ("rank",)),
+    "adaptive": (AdaptiveWire, ("threshold",)),
 }
 
 
@@ -493,17 +917,24 @@ def make_wire_format(spec, **overrides) -> WireFormat:
     """spec -> :class:`WireFormat`: a registered instance (returned, or
     ``dataclasses.replace``d with ``overrides``) or ``name[:arg[:arg...]]``
     with positional or ``key=value`` args (``quant:4``, ``quant:bits=3,block=128``,
-    ``sparse:0.05:topk``, ``sign:l2:256``, ``fp16``, ``identity``).  ``lowrank``
-    and ``adaptive`` are not ported."""
+    ``sparse:0.05:topk``, ``sign:l2:256``, ``fp16``, ``identity``,
+    ``lowrank:2``, ``lowrank:2:warm``,
+    ``adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4``).  A
+    format whose class has a ``parse_spec_args`` staticmethod (``lowrank``,
+    ``adaptive``) parses its own args."""
     if isinstance(spec, WireFormat):
         return dataclasses.replace(spec, **overrides) if overrides else spec
     if not isinstance(spec, str):
         raise TypeError(f"wire spec must be a WireFormat or str, got {type(spec)}")
     name, *args = spec.split(":")
     if name not in WIRE_FORMATS:
-        raise ValueError(f"unknown or unported wire format {name!r}; "
-                         f"ported: {sorted(WIRE_FORMATS)}")
+        raise ValueError(f"unknown wire format {name!r}; registered: {sorted(WIRE_FORMATS)}")
     ctor, positional = WIRE_FORMATS[name]
+    parse = getattr(ctor, "parse_spec_args", None)
+    if parse is not None:
+        kwargs = parse(args)
+        kwargs.update(overrides)
+        return ctor(**kwargs)
     kwargs: Dict[str, Any] = {}
     pos = 0
     for arg in args:

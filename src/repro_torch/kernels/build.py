@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+_I64 = ctypes.c_longlong
 
 # C signature of every exported launcher: (argtypes), restype is int
 # (the cudaError_t of cudaGetLastError after the launch).
@@ -41,6 +42,10 @@ SIGNATURES = {
     "sparse": {
         "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _F, _P),
         "sparse_scatter_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    },
+    "lowrank": {
+        "lowrank_project_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _P),
+        "lowrank_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _F, _F, _P),
     },
 }
 

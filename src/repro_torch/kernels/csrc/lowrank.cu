@@ -1,0 +1,190 @@
+// Low-rank project (K7a) and low-rank axpy (K7b): the send-side projection
+// and the receive kernel of the `lowrank:<r>[:warm]` (PowerGossip) gossip
+// wire, for Hopper (sm_90a).
+//
+// K7a `lowrank_project` replaces the TPU kernel `lowrank_project_2d`
+// (src/repro/kernels/lowrank.py, `_lowrank_project_kernel`).
+//   P[b] = M[b] @ V[b] for a batch of (rows, n) f32 leaf views and (n, r)
+//   right factors; V's batch stride may be 0 (the cold factor, one (n, r)
+//   start shared by every node and layer).
+//   Bound on this card: memory.  M is read once (4 B an element); V is
+//   n*r*4 B per batch and stays in L2 (395 KB at the lm_head leaf, rank 2);
+//   the r*2 operations an element are far below the f32 rate.
+//   Design: the Pallas kernel keeps the whole (n, r) factor in VMEM, which
+//   would not fit a CTA's shared memory at n = 49408, so V is read through
+//   the read-only path (__ldg) and shared by the rows of a warp instead.
+//   One warp owns kRowsPerWarp rows; lane l walks j = 32k + l for k = 0, 1,
+//   ..., so each step loads 128 consecutive bytes of every row, and keeps
+//   one running sum per (row, rank) in registers.  Ranks are taken kRankChunk
+//   at a time, one chunk per grid.z, so any rank 1..128 fits the registers.
+//   The sum over n has one fixed order, spelled out in the plain version
+//   (kernels/ref.py `lowrank_project_2d_ref`): each lane adds its products
+//   onto +0.0 in k order, then a halving tree over the lanes (shfl_down 16,
+//   8, 4, 2, 1).  Columns past n add +0.0 (zero M times zero V).
+//
+// K7b `lowrank_axpy` replaces the TPU kernel `lowrank_axpy_2d`
+// (src/repro/kernels/lowrank.py, `_lowrank_axpy_kernel`).
+//   out[b] = aw*acc[b] + w*(P[b] @ V[b]^T), P (rows, r), V (n, r); acc and
+//   out may be the same buffer (each element is read and then written by
+//   one thread).
+//   Bound on this card: memory.  4 B of accumulator in and 4 B out an
+//   element; the factors are (rows + n)*r*4 B per batch.  At rank r the
+//   reconstruction costs 2r operations an element, below the f32 rate up to
+//   r of about 20 at 3.35 TB/s.
+//   Design: a CTA owns a tile of kTile columns and kRowTile rows of one
+//   batch; thread t owns column j0 + t.  It stages its own V[j, 0..r-1] in
+//   shared memory (the block's column tile of V, r*kTile*4 B, up to 128 KB
+//   at rank 128; each thread reads only what it wrote, so no barrier), then
+//   walks the rows: dot = P[i,0]*V[j,0] + P[i,1]*V[j,1] + ... in k order,
+//   out = aw*acc + w*dot.  P[i, k] is the same address for the whole CTA, a
+//   broadcast through L1.  The reconstruction never exists in device memory.
+//
+// Exactness: both kernels are bit-equal to the plain PyTorch versions in
+// kernels/ref.py.  Every product and sum is written with a _rn intrinsic,
+// so nvcc cannot contract it into an FMA.  A node's result depends only on
+// its own batch slice, never on its position in the batch.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;             // K7a: warps per CTA
+constexpr int kRowsPerWarp = 4;       // K7a: rows sharing one warp's V loads
+constexpr int kRankChunk = 8;         // K7a: most ranks a CTA sums at once
+constexpr int kTile = 256;            // K7b: columns per CTA (threads)
+constexpr int kRowTile = 16;          // K7b: rows per CTA
+constexpr int kMaxRank = 128;
+
+template <int RC>
+__global__ void __launch_bounds__(kWarps * 32)
+lowrank_project_kernel(const float* __restrict__ m, const float* __restrict__ v,
+                       float* __restrict__ p, int rows, int n, int r,
+                       long long v_bstride) {
+  const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int row0 = warp * kRowsPerWarp;
+  if (row0 >= rows) return;
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.z * RC;
+  const float* mb = m + static_cast<size_t>(b) * rows * n;
+  const float* vb = v + static_cast<size_t>(b) * v_bstride;
+  float s[kRowsPerWarp][RC];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int c = 0; c < RC; ++c) s[i][c] = 0.0f;
+  const int groups = (n + 31) / 32;
+#pragma unroll 4
+  for (int k = 0; k < groups; ++k) {
+    const int j = k * 32 + lane;
+    const bool in = j < n;
+    float vv[RC];
+#pragma unroll
+    for (int c = 0; c < RC; ++c)
+      vv[c] = in && c0 + c < r ? __ldg(vb + static_cast<size_t>(j) * r + c0 + c) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const float x = in && row0 + i < rows ? mb[static_cast<size_t>(row0 + i) * n + j] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < RC; ++c) s[i][c] = __fadd_rn(s[i][c], __fmul_rn(x, vv[c]));
+    }
+  }
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1)
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+      for (int c = 0; c < RC; ++c)
+        s[i][c] = __fadd_rn(s[i][c], __shfl_down_sync(0xFFFFFFFFu, s[i][c], h));
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      if (row0 + i >= rows) break;
+      float* out = p + (static_cast<size_t>(b) * rows + row0 + i) * r + c0;
+#pragma unroll
+      for (int c = 0; c < RC; ++c)
+        if (c0 + c < r) out[c] = s[i][c];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTile)
+lowrank_axpy_kernel(const float* __restrict__ p, const float* __restrict__ v,
+                    const float* acc, float* out, int rows, int n, int r,
+                    long long v_bstride, float aw, float w) {
+  extern __shared__ float sv[];                  // [r][kTile], column t private to thread t
+  const int t = threadIdx.x;
+  const int j = blockIdx.x * kTile + t;
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kRowTile;
+  if (j >= n) return;
+  const float* vb = v + static_cast<size_t>(b) * v_bstride + static_cast<size_t>(j) * r;
+  for (int c = 0; c < r; ++c) sv[c * kTile + t] = __ldg(vb + c);
+  const float* pb = p + static_cast<size_t>(b) * rows * r;
+  const int i1 = min(i0 + kRowTile, rows);
+#pragma unroll 4
+  for (int i = i0; i < i1; ++i) {
+    const float* pr = pb + static_cast<size_t>(i) * r;
+    float dot = __fmul_rn(__ldg(pr), sv[t]);
+    for (int c = 1; c < r; ++c) dot = __fadd_rn(dot, __fmul_rn(__ldg(pr + c), sv[c * kTile + t]));
+    const size_t e = (static_cast<size_t>(b) * rows + i) * n + j;
+    out[e] = __fadd_rn(__fmul_rn(aw, acc[e]), __fmul_rn(w, dot));
+  }
+}
+
+template <int RC>
+int launch_project(const float* m, const float* v, float* p, int batch, int rows, int n,
+                   int r, long long v_bstride, cudaStream_t stream) {
+  const int rows_per_cta = kWarps * kRowsPerWarp;
+  const dim3 grid((rows + rows_per_cta - 1) / rows_per_cta, batch, (r + RC - 1) / RC);
+  lowrank_project_kernel<RC><<<grid, kWarps * 32, 0, stream>>>(m, v, p, rows, n, r,
+                                                              v_bstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C interface, bound with ctypes (kernels/build.py).  Each returns the
+// cudaGetLastError() after its launch: 0 when the launch was accepted.
+// Preconditions, checked by the Python wrappers: 1 <= r <= 128, batch <=
+// 65535, M, P, acc and out contiguous (batch, rows, ·) buffers, V contiguous
+// (n, r) slices at batch stride v_bstride (0 or n*r), one device; for K7b
+// n % 128 == 0.
+extern "C" int lowrank_project_2d_launch(const void* m, const void* v, void* p, int batch,
+                                         int rows, int n, int r, long long v_bstride,
+                                         void* stream) {
+  if (batch == 0 || rows == 0) return 0;
+  if (r < 1 || r > kMaxRank || n < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* mf = static_cast<const float*>(m);
+  const auto* vf = static_cast<const float*>(v);
+  auto* pf = static_cast<float*>(p);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (r == 1) return launch_project<1>(mf, vf, pf, batch, rows, n, r, v_bstride, s);
+  if (r == 2) return launch_project<2>(mf, vf, pf, batch, rows, n, r, v_bstride, s);
+  if (r <= 4) return launch_project<4>(mf, vf, pf, batch, rows, n, r, v_bstride, s);
+  return launch_project<kRankChunk>(mf, vf, pf, batch, rows, n, r, v_bstride, s);
+}
+
+extern "C" int lowrank_axpy_2d_launch(const void* p, const void* v, const void* acc,
+                                      void* out, int batch, int rows, int n, int r,
+                                      long long v_bstride, float aw, float w, void* stream) {
+  if (batch == 0 || rows == 0) return 0;
+  if (r < 1 || r > kMaxRank || n % 128 != 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = r * kTile * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lowrank_axpy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int row_tiles = (rows + kRowTile - 1) / kRowTile;
+  if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kTile - 1) / kTile, row_tiles, batch);
+  lowrank_axpy_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(v),
+      static_cast<const float*>(acc), static_cast<float*>(out), rows, n, r, v_bstride, aw,
+      w);
+  return static_cast<int>(cudaGetLastError());
+}

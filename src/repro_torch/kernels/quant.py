@@ -1,7 +1,8 @@
 """Wrappers of the wire kernels: quantize-pack (K1) and unpack-dequant-axpy
 (K2) in ``csrc/quant.cu``, sign-pack (K5a) and unpack-sign-axpy (K5b) in
 ``csrc/sign.cu``, sparse select-pack (K6) and sparse scatter-axpy (K6c) in
-``csrc/sparse.cu``.
+``csrc/sparse.cu``; the launch counters of these and of the low-rank
+kernels (K7a, K7b, ``kernels/lowrank.py``) in :data:`KERNEL_WRAPPERS`.
 
 Same signatures and the same ``(rows, cols)`` contract as the JAX package's
 functions of the same names: one block per row, ``cols % 128 == 0``.  Each
@@ -23,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.lowrank import lowrank_axpy_2d, lowrank_project_2d
 from repro_torch.kernels.ref import (
     MASK32,
     PACKABLE_BITS,
@@ -290,7 +292,8 @@ sparse_select_pack_2d.launches = 0
 sparse_scatter_axpy_2d.launches = 0
 
 KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, sign_pack_2d,
-                   unpack_sign_axpy_2d, sparse_select_pack_2d, sparse_scatter_axpy_2d)
+                   unpack_sign_axpy_2d, sparse_select_pack_2d, sparse_scatter_axpy_2d,
+                   lowrank_project_2d, lowrank_axpy_2d)
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the wire kernels: quantize-pack and
 unpack-dequant-axpy, sign-pack and sign-axpy, sparse select-pack and
-scatter-axpy.
+scatter-axpy, low-rank project and low-rank axpy.
 
 The port's copy of the JAX package's ``kernels/ref.py`` and the helpers of
 ``kernels/quant.py`` (``stream_geometry``, ``idx_bits_for``,
@@ -10,6 +10,8 @@ bit-equal to the JAX package's for the same seed.  One deliberate exception:
 the sign codec's per-row scale is a sum, and the plain version here fixes
 the order of that sum (see :func:`sign_scale_2d`) so that it is bit-equal to
 the CUDA kernel; it agrees with the JAX package's ``jnp.mean`` to rounding.
+The low-rank products are sums too, fixed the same way
+(:func:`lowrank_project_2d_ref`, :func:`_factor_matmul`).
 The CUDA kernels in ``csrc/*.cu`` are held to these functions on the card;
 the CPU tests hold these functions to the JAX package.
 
@@ -435,6 +437,102 @@ def unpack_sign_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor, acc: torc
         sgn = unpack_uint(packed[sl], bits=1).to(torch.float32) * 2.0 - 1.0
         out[sl] = aw * acc[sl].to(torch.float32) + sgn * (scale[sl].to(torch.float32) * w)
     return out
+
+
+# ----------------------------------------------------------- low-rank codec
+
+LOWRANK_LANES = 32      # the partial sums of a K7a row: one per warp lane
+
+
+def lowrank_orthonormalize_ref(p: torch.Tensor, *, eps: float = 1e-8) -> torch.Tensor:
+    """Batched modified Gram-Schmidt over the trailing ``(m, r)`` factor
+    (JAX ``kernels/ref.py:321``): the columns in order, each minus its
+    projections on the earlier ones, divided by ``max(norm, eps)`` (a true
+    tensor / tensor division).  The sums are torch's, so this agrees with the
+    JAX package to rounding."""
+    p = p.to(torch.float32)
+    cols = []
+    for j in range(p.shape[-1]):
+        v = p[..., j]
+        for q in cols:
+            v = v - torch.sum(q * v, dim=-1, keepdim=True) * q
+        norm = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
+        cols.append(v / torch.maximum(norm, torch.full_like(norm, eps)))
+    return torch.stack(cols, dim=-1)
+
+
+def _factor_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b^T`` over the shared last (rank) dim, ``(..., m, r) x (..., n, r)
+    -> (..., m, n)`` f32, in kernel K7b's fixed order: ``a[:, 0]*b[:, 0]``,
+    then ``+ a[:, k]*b[:, k]`` for ``k = 1..r-1``, every product and sum
+    rounded separately (JAX ``kernels/ref.py:343`` leaves the order to
+    XLA's dot)."""
+    a, b = a.to(torch.float32), b.to(torch.float32)
+    out = a[..., :, 0:1] * b[..., None, :, 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., :, k:k + 1] * b[..., None, :, k]
+    return out
+
+
+def _project_slab(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(rows, n) x (n, r) -> (rows, r) in :func:`lowrank_project_2d_ref`'s order."""
+    n, r = v.shape
+    pad = (-n) % LOWRANK_LANES
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    groups = (n + pad) // LOWRANK_LANES
+    mr = m.reshape(m.shape[0], groups, LOWRANK_LANES)              # (rows, K, 32)
+    vr = v.reshape(groups, LOWRANK_LANES, r)                       # (K, 32, r)
+    s = torch.zeros((m.shape[0], LOWRANK_LANES, r), dtype=torch.float32, device=m.device)
+    for k in range(groups):
+        s = s + mr[:, k, :, None] * vr[None, k]
+    h = LOWRANK_LANES // 2
+    while h:
+        s = s[:, :h] + s[:, h:]
+        h //= 2
+    return s[:, 0]
+
+
+def lowrank_project_2d_ref(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K7a: ``P = M @ V``, ``(..., rows, n) x (..., n,
+    r) -> (..., rows, r)`` f32, leading dims broadcast and run one slab at a
+    time.  The sum over ``n`` runs in the CUDA kernel's fixed order: ``n`` is
+    zero-padded to whole groups of 32; lane ``l`` adds the products
+    ``m[j]*v[j, c]`` of ``j = 32k + l`` for ``k = 0, 1, ...`` in order onto
+    +0.0; then a halving tree over the 32 lane sums adds ``s[l] += s[l + h]``
+    for ``h = 16, 8, 4, 2, 1``.  Every product and sum is rounded
+    separately.  (A zero-padded product adds +0.0 to a sum that started at
+    +0.0, which changes nothing.)"""
+    m, v = m.to(torch.float32), v.to(torch.float32)
+    lead = torch.broadcast_shapes(m.shape[:-2], v.shape[:-2])
+    rows, r = m.shape[-2], v.shape[-1]
+    mb = m.expand(*lead, *m.shape[-2:]).reshape(-1, *m.shape[-2:])
+    vb = v.expand(*lead, *v.shape[-2:]).reshape(-1, *v.shape[-2:])
+    out = torch.empty((mb.shape[0], rows, r), dtype=torch.float32, device=m.device)
+    for b in range(mb.shape[0]):
+        out[b] = _project_slab(mb[b], vb[b])
+    return out.reshape(*lead, rows, r)
+
+
+def lowrank_axpy_2d_ref(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *,
+                        weight, acc_weight=1.0) -> torch.Tensor:
+    """Plain version of kernel K7b: ``aw*acc + w*(P @ V^T)`` over ``(...,
+    rows, n)``, the product in :func:`_factor_matmul`'s order and ``aw``,
+    ``w`` rounded to f32 as the JAX kernel's operand rounds them.  Leading
+    dims run one slice at a time (bounds the temporaries at full width)."""
+    aw, w = f32_scalar(acc_weight), f32_scalar(weight)
+    acc = acc.to(torch.float32)
+    if acc.dim() == 2:
+        return aw * acc + w * _factor_matmul(p, v)
+    lead = acc.shape[:-2]
+    p = p.expand(*lead, *p.shape[-2:]).reshape(-1, *p.shape[-2:])
+    v = v.expand(*lead, *v.shape[-2:]).reshape(-1, *v.shape[-2:])
+    accf = acc.reshape(-1, *acc.shape[-2:])
+    out = torch.empty_like(accf)
+    for b in range(accf.shape[0]):
+        out[b] = aw * accf[b] + w * _factor_matmul(p[b], v[b])
+    return out.reshape(acc.shape)
 
 
 # ------------------------------------------------------------- comparison

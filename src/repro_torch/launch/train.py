@@ -7,6 +7,9 @@ and every gossip payload rides the port's kernels.
 
     python -m repro_torch.launch.train --algo dcd --wire quant:4 --steps 20
     python -m repro_torch.launch.train --algo choco --wire sign --steps 20
+    python -m repro_torch.launch.train --algo dcd --wire lowrank:2:warm --steps 20
+    python -m repro_torch.launch.train --algo choco --steps 20 \
+        --wire adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4
 
 Not ported yet (the flags exist and raise when set): checkpoints
 (``--ckpt-dir``), phase plans (``--phase-plan``) and edge drops
@@ -83,10 +86,10 @@ def run_training(cfg: ArchConfig, tc: TrainConfig, *, device="cuda") -> Dict[str
     opt = make_optimizer(tc.optimizer, **({"weight_decay": 0.01} if tc.optimizer == "adamw" else {}))
     sched = linear_warmup_cosine(tc.lr, tc.warmup, tc.steps)
     plan = make_gossip_plan(tc.topology, tc.n_nodes)
-    step_fn = make_dist_train_step(model.loss, tc.algo, opt, make_wire_format(tc.wire),
-                                   plan, sched, gamma=tc.gamma)
+    wire = make_wire_format(tc.wire)
+    step_fn = make_dist_train_step(model.loss, tc.algo, opt, wire, plan, sched, gamma=tc.gamma)
     params0 = model.init(tc.seed, device=device)
-    state = init_dist_state(tc.algo, params0, plan, opt)
+    state = init_dist_state(tc.algo, params0, plan, opt, wire=wire)
     del params0
     dc = DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len, global_batch=tc.global_batch,
                     n_shards=tc.n_nodes, seed=tc.seed)

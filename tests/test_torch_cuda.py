@@ -1,5 +1,5 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K5a,
-K5b, K6 and K6c against their plain versions.
+K5b, K6, K6c, K7a and K7b against their plain versions.
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import lowrank as lk
 from repro_torch.kernels import quant as q
 from repro_torch.kernels import ref
 
@@ -183,4 +184,95 @@ def test_wrappers_raise_on_rows_wider_than_the_kernels(cuda):
                  lambda: q.sparse_scatter_axpy_2d(vals, idx, x, weight=1.0)):
         with pytest.raises(ValueError, match="at most"):
             call()
+    assert q.launch_counts() == before
+
+
+def _lowrank_inputs(batch, rows, n, rank, device, seed):
+    """M with a zero row, -0.0 entries and a NaN; factors centred uniform
+    with a -0.0; the cold factor shared at batch stride 0, the warm one per
+    slab."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    m = torch.randn((batch, rows, n), generator=g, device=device)
+    m[0, 0].zero_()
+    m[0, min(1, rows - 1), :7] = -0.0
+    m[-1, min(2, rows - 1), 3] = float("nan")
+    v0 = torch.rand((n, rank), generator=g, device=device) - 0.5
+    v0[0, 0] = -0.0
+    vw = torch.rand((batch, n, rank), generator=g, device=device) - 0.5
+    return m, {"cold": v0.expand(batch, n, rank), "warm": vw}
+
+
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 8, 9, 128])
+@pytest.mark.parametrize("batch,rows,n", [(3, 37, 384), (8, 1, 2048), (2, 70, 100),
+                                          (1, 5, 49408)])
+def test_lowrank_project_kernel_bit_equal(cuda, rank, batch, rows, n):
+    m, factors = _lowrank_inputs(batch, rows, n, rank, cuda, seed=rank * 7 + n)
+    for mode, v in factors.items():
+        before = lk.lowrank_project_2d.launches
+        p = lk.lowrank_project_2d(m, v)
+        torch.cuda.synchronize()
+        assert lk.lowrank_project_2d.launches == before + 1
+        assert ref.same_bits(p, ref.lowrank_project_2d_ref(m, v)), mode
+        # a node's result does not depend on its position in the batch
+        assert ref.same_bits(p[1:], lk.lowrank_project_2d(m[1:].contiguous(), v[1:]))
+
+
+@pytest.mark.parametrize("rank", [1, 2, 4, 128])
+@pytest.mark.parametrize("batch,rows,n", [(3, 37, 384), (8, 1, 2048), (2, 70, 256)])
+@pytest.mark.parametrize("acc_weight,weight", [(1.0, 1.0), (0.5, -2.0), (1.0 / 3.0, 0.7)])
+def test_lowrank_axpy_kernel_bit_equal(cuda, rank, batch, rows, n, acc_weight, weight):
+    m, factors = _lowrank_inputs(batch, rows, n, rank, cuda, seed=rank + n)
+    acc = _x(batch * rows, n, cuda, seed=rank).reshape(batch, rows, n)
+    for mode, v in factors.items():
+        p = ref.lowrank_project_2d_ref(m, v)
+        p[0, 0] = -0.0
+        before = lk.lowrank_axpy_2d.launches
+        out = lk.lowrank_axpy_2d(p, v, acc, weight=weight, acc_weight=acc_weight)
+        torch.cuda.synchronize()
+        assert lk.lowrank_axpy_2d.launches == before + 1
+        want = ref.lowrank_axpy_2d_ref(p, v, acc, weight=weight, acc_weight=acc_weight)
+        assert ref.same_bits(out, want), mode
+        inplace = acc.clone()
+        lk.lowrank_axpy_2d(p, v, inplace, weight=weight, acc_weight=acc_weight, out=inplace)
+        assert ref.same_bits(inplace, want), mode
+
+
+@pytest.mark.parametrize("spec", ["lowrank:2", "lowrank:4"])
+def test_lowrank_wire_round_on_card_matches_cpu(cuda, spec):
+    """A stacked matrix leaf's encode on the card: K7a's projection bit-equal
+    to the CPU's; MGS and the re-projection are torch sums, equal to
+    rounding.  The receive of one payload bit-equal on both."""
+    from repro_torch.distributed.wire import make_wire_format
+
+    wire = make_wire_format(spec)
+    leaf = _x(8 * 48, 640, cuda, seed=11).reshape(8, 1, 48, 640)
+    acc = _x(8 * 48, 640, cuda, seed=12).reshape(8, 1, 48, 640)
+    m, v0 = leaf.reshape(8, 48, 640), wire._factor_init(640, 77, cuda)
+    assert ref.same_bits(lk.lowrank_project_2d(m, v0.expand(8, 640, wire.rank)).cpu(),
+                         ref.lowrank_project_2d_ref(m.cpu(), v0.cpu()))
+    p_gpu = wire.encode(leaf, 77)
+    p_cpu = wire.encode(leaf.cpu(), 77)
+    for k in p_cpu:
+        torch.testing.assert_close(p_gpu[k].cpu(), p_cpu[k], rtol=1e-4, atol=1e-5)
+    a_cpu = acc.cpu()
+    wire.decode_axpy_({k: t.to(cuda) for k, t in p_cpu.items()}, acc, 0.5, 1.0)
+    wire.decode_axpy_(p_cpu, a_cpu, 0.5, 1.0)
+    assert ref.same_bits(acc.cpu(), a_cpu)
+
+
+def test_lowrank_wrappers_raise_past_what_the_kernels_take(cuda):
+    m = _x(4, 256, cuda).reshape(1, 4, 256)
+    before = q.launch_counts()
+    with pytest.raises(ValueError, match="ranks"):
+        lk.lowrank_project_2d(m, torch.zeros((1, 256, 129), device=cuda))
+    with pytest.raises(ValueError, match="n % 128"):
+        lk.lowrank_axpy_2d(torch.zeros((4, 2), device=cuda), torch.zeros((100, 2), device=cuda),
+                           torch.zeros((4, 100), device=cuda), weight=1.0)
+    with pytest.raises(ValueError, match="slabs"):
+        lk.lowrank_project_2d(torch.zeros((65536, 1, 128), device=cuda),
+                              torch.zeros((128, 2), device=cuda).expand(65536, 128, 2))
+    with pytest.raises(ValueError, match="batch stride"):
+        lk.lowrank_project_2d(torch.zeros((2, 4, 256), device=cuda),
+                              torch.zeros((4, 256, 2), device=cuda)[::2])
     assert q.launch_counts() == before

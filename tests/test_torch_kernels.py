@@ -116,9 +116,12 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     tq.unpack_sign_axpy_2d(signs, sign_scale, x, weight=1.0)
     vals, idx = tq.sparse_select_pack_2d(x, 1, p=0.25, mode="topk")
     tq.sparse_scatter_axpy_2d(vals, idx, x, weight=1.0)
+    p = tq.lowrank_project_2d(x, torch.zeros((256, 2)))
+    tq.lowrank_axpy_2d(p, torch.zeros((256, 2)), x, weight=1.0)
     assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0,
                                   "sign_pack_2d": 0, "unpack_sign_axpy_2d": 0,
-                                  "sparse_select_pack_2d": 0, "sparse_scatter_axpy_2d": 0}
+                                  "sparse_select_pack_2d": 0, "sparse_scatter_axpy_2d": 0,
+                                  "lowrank_project_2d": 0, "lowrank_axpy_2d": 0}
     for fn in tq.KERNEL_WRAPPERS:                                 # the counter is the wrapper's
         fn.launches = 3
     assert set(tq.launch_counts().values()) == {3}

@@ -105,8 +105,9 @@ def test_wire_spec_and_measured_bits_match_jax(spec):
 
 
 def test_unported_specs_raise():
-    with pytest.raises(ValueError):
-        tw.make_wire_format("lowrank:2")
+    # lowrank is ported: its spec parses and round-trips like the JAX package's
+    assert tw.wire_spec(tw.make_wire_format("lowrank:2")) == "lowrank:2"
+    assert tw.make_wire_format("lowrank:2") == tw.LowRankWire(rank=2)
     with pytest.raises(ValueError):
         tw.make_wire_format("quant:4:1024:9")
 

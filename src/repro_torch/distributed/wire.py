@@ -15,19 +15,28 @@ package to rounding).
   format's send kernel (whose wrapper raises on a CUDA row wider than the
   kernel takes, ``MAX_COLS``) —
   K1 :func:`~repro_torch.kernels.quant.quantize_pack_2d` (``quant`` at bits
-  2..7), K5a :func:`~repro_torch.kernels.quant.sign_pack_2d` (``sign``), K6
-  :func:`~repro_torch.kernels.quant.sparse_select_pack_2d` (``sparse``) —
-  whose counter ``row*block + lane`` is the flat index of the blocked view
-  (:func:`_block_counters`).  Other blocks, ``quant`` at 8 bits, and the
-  shapes-only ``meta`` accounting run the plain versions.  (The JAX runtime
+  2..7), K3 :func:`~repro_torch.kernels.quant.quantize_2d` (``quant`` in the
+  int8 container, 8 bits), K5a :func:`~repro_torch.kernels.quant.sign_pack_2d`
+  (``sign``), K6 :func:`~repro_torch.kernels.quant.sparse_select_pack_2d`
+  (``sparse``) — whose counter ``row*block + lane`` is the flat index of the
+  blocked view (:func:`_block_counters`).  Other blocks (the quickstart's
+  block 32) and the shapes-only ``meta`` accounting run the plain versions:
+  that gate is the JAX wire's own, not a fallback.  (The JAX runtime
   encodes in jnp; the port puts a kernel on the send side too, held to the
   same words.)
+* ``decode(payload, like)`` is the dense decode, through K4a
+  :func:`~repro_torch.kernels.quant.dequantize_2d` (int8 codes, any block),
+  K4b :func:`~repro_torch.kernels.quant.unpack_dequant_2d` (packed words,
+  any whole number of stream groups) or, for ``sparse`` behind the 128-lane
+  gate, K6b :func:`~repro_torch.kernels.quant.sparse_unpack_scatter_2d`.
 * ``decode_axpy_(payload, acc, weight, acc_weight)`` adds the decoded payload
   into ``acc`` IN PLACE through the format's receive kernel (K2, K5b, K6c)
   behind the same gate (the JAX package's ``block % 128``); off the gate it
-  runs the plain decode-then-axpy.  The JAX package is pure and returns new
-  arrays; the port updates params, replicas and estimates in place, because
-  at full width every leaf-sized temporary costs gigabytes.
+  runs the decode, then the axpy (the JAX base path: an int8 ``quant``
+  payload's receive is K4a and the axpy in torch).  The JAX package is pure
+  and returns new arrays; the port updates params, replicas and estimates
+  in place, because at full width every leaf-sized temporary costs
+  gigabytes.
 
 * ``lowrank`` is not blocked: a stacked matrix leaf (lead..., m, n) ships
   rank-r factors of one power-iteration step (:class:`LowRankWire`), its
@@ -61,10 +70,14 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.lowrank import lowrank_axpy_2d, lowrank_project_2d
 from repro_torch.kernels.quant import (
+    dequantize_2d,
+    quantize_2d,
     quantize_pack_2d,
     sign_pack_2d,
     sparse_scatter_axpy_2d,
     sparse_select_pack_2d,
+    sparse_unpack_scatter_2d,
+    unpack_dequant_2d,
     unpack_dequant_axpy_2d,
     unpack_sign_axpy_2d,
 )
@@ -74,17 +87,16 @@ from repro_torch.kernels.ref import (
     SPARSE_MODES,
     aligned_block,
     assert_packable,
-    dequantize_2d_ref,
     _factor_matmul,
     levels_for,
     lowrank_orthonormalize_ref,
     packed_auto,
+    quantize_2d_ref,
     quantize_pack_2d_ref,
     sign_pack_2d_ref,
     sparse_select_pack_2d_ref,
     sparse_unpack_scatter_2d_ref,
     uniform_from_hash,
-    unpack_codes,
     unpack_sign_2d_ref,
 )
 from repro_torch.tree import leaf_items, tree_from_items
@@ -119,27 +131,6 @@ def _pad_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     if pad:
         x = F.pad(x, (0, pad))
     return x.reshape(*x.shape[:-1], (last + pad) // block, block)
-
-
-def _quantize_nd(x: torch.Tensor, seed: int, *, bits: int, block: int):
-    """Plain stochastic quantization blocked along the last dim (the JAX
-    package's ``_quantize_nd``): int8 codes (..., nblk, block), scales."""
-    levels = levels_for(bits)
-    xb = _pad_blocks(x.to(torch.float32), block)
-    scale = xb.abs().amax(dim=-1, keepdim=True)
-    safe = torch.where(scale > 0.0, scale, torch.ones_like(scale))
-    v = xb * (torch.full_like(safe, levels) / safe)   # true division, see kernels/ref.py
-    u = uniform_from_hash(_block_counters(tuple(xb.shape), xb.device), seed)
-    floor = torch.floor(v)
-    q = floor + (u < (v - floor)).to(torch.float32)
-    return q.clamp(-levels, levels).to(torch.int8), scale
-
-
-def _dequantize_nd(codes: torch.Tensor, scale: torch.Tensor, *, bits: int,
-                   orig_last: int, dtype) -> torch.Tensor:
-    vals = dequantize_2d_ref(codes, scale, bits=bits)   # broadcasts per block
-    out = vals.reshape(*vals.shape[:-2], vals.shape[-2] * vals.shape[-1])
-    return out[..., :orig_last].to(dtype)
 
 
 def _axpy_folded_(acc: torch.Tensor, nblk: int, block: int,
@@ -334,24 +325,25 @@ class QuantWire(WireFormat):
 
     def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
         block = self._block_for(leaf.shape[-1])
-        if not self.packed:
-            codes, scale = _quantize_nd(leaf, seed, bits=self.bits, block=block)
-            return {"codes": codes, "scale": scale}
         xb = _pad_blocks(leaf.to(torch.float32), block)
         lead = xb.shape[:-1]
         x2d = xb.reshape(-1, block)
-        if self._kernel_ok(block) and leaf.device.type != "meta":
-            words, scale = quantize_pack_2d(x2d, seed, bits=self.bits)
-        else:   # off the kernel gate (or shapes only): the plain encode
-            words, scale = quantize_pack_2d_ref(x2d, seed, bits=self.bits)
-        return {"codes": words.reshape(*lead, words.shape[-1]),
+        on_gate = self._kernel_ok(block) and leaf.device.type != "meta"
+        if self.packed:     # K1, or off the kernel gate (or shapes only) its plain version
+            quant = quantize_pack_2d if on_gate else quantize_pack_2d_ref
+        else:               # K3 likewise
+            quant = quantize_2d if on_gate else quantize_2d_ref
+        codes, scale = quant(x2d, seed, bits=self.bits)
+        return {"codes": codes.reshape(*lead, codes.shape[-1]),
                 "scale": scale.reshape(*lead, 1)}
 
     def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
-        codes = unpack_codes(payload["codes"], bits=self.bits) \
-            if self.packed else payload["codes"]
-        return _dequantize_nd(codes, payload["scale"], bits=self.bits,
-                              orig_last=like.shape[-1], dtype=like.dtype)
+        """One K4b (packed) or K4a (int8) launch per leaf, whatever the block."""
+        codes = payload["codes"]
+        c2d, s2d = codes.reshape(-1, codes.shape[-1]), payload["scale"].reshape(-1, 1)
+        vals = unpack_dequant_2d(c2d, s2d, bits=self.bits) if self.packed \
+            else dequantize_2d(c2d, s2d, bits=self.bits)
+        return _unfold(vals, codes.shape[:-1], like.shape[-1], like.dtype)
 
     def decode_axpy_(self, payload: Payload, acc: torch.Tensor, weight,
                      acc_weight=1.0) -> torch.Tensor:
@@ -414,10 +406,13 @@ class SparseWire(WireFormat):
                 "idx": idx.reshape(*lead, idx.shape[-1])}
 
     def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
+        """One K6b launch per leaf behind the 128-lane gate."""
         vals, idx = payload["values"], payload["idx"]
         block = self._block_for(like.shape[-1])
-        dense = sparse_unpack_scatter_2d_ref(vals.reshape(-1, vals.shape[-1]),
-                                             idx.reshape(-1, idx.shape[-1]), cols=block)
+        scatter = sparse_unpack_scatter_2d if self._kernel_ok(block) \
+            else sparse_unpack_scatter_2d_ref
+        dense = scatter(vals.reshape(-1, vals.shape[-1]), idx.reshape(-1, idx.shape[-1]),
+                        cols=block)
         return _unfold(dense, vals.shape[:-1], like.shape[-1], like.dtype)
 
     def decode_axpy_(self, payload: Payload, acc: torch.Tensor, weight,

@@ -34,6 +34,9 @@ SIGNATURES = {
     "quant": {
         "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
         "unpack_dequant_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+        "quantize_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
+        "dequantize_2d_launch": (_P, _P, _P, _I64, _I, _F, _P),
+        "unpack_dequant_2d_launch": (_P, _P, _P, _I, _I, _I, _F, _P),
     },
     "sign": {
         "sign_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _P),
@@ -42,6 +45,7 @@ SIGNATURES = {
     "sparse": {
         "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _F, _P),
         "sparse_scatter_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+        "sparse_unpack_scatter_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "lowrank": {
         "lowrank_project_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _P),

@@ -1,6 +1,6 @@
-// Sparse select-pack (K6) and sparse scatter-axpy (K6c): the send and
-// receive kernels of the fixed-capacity `sparse` gossip wire, for Hopper
-// (sm_90a).
+// Sparse select-pack (K6), sparse scatter-axpy (K6c) and sparse
+// unpack-scatter (K6b): the send, the fused receive and the dense decode of
+// the fixed-capacity `sparse` gossip wire, for Hopper (sm_90a).
 //
 // K6 `sparse_select_pack` replaces the TPU kernel `sparse_select_pack_2d`
 // (src/repro/kernels/quant.py, `_sparse_select_pack_kernel`).
@@ -39,7 +39,19 @@
 //   TPU kernel's compare drops it), then one coalesced pass over the row
 //   writes every lane.
 //
-// Exactness: both kernels are bit-equal to the plain PyTorch versions in
+// K6b `sparse_unpack_scatter` replaces the TPU kernel `sparse_unpack_scatter_2d`
+// (src/repro/kernels/quant.py, `_sparse_scatter_kernel`).
+//   out = hit ? 0.0f + value : +0.0 per lane: the TPU kernel adds each value
+//   into zeros, so a kept -0.0 decodes to +0.0 (a kernel that stored the
+//   value would keep -0.0).  Values f32 or f16.
+//   Bound on this card: memory.  Per row k values and the index words in,
+//   4 B an element out.
+//   Design: K6c's, without the accumulator: one warp per row builds the
+//   lane -> slot map in shared memory from the unpacked indices
+//   (`build_slot_map`, shared with K6c), then one coalesced pass writes the
+//   row.
+//
+// Exactness: the kernels are bit-equal to the plain PyTorch versions in
 // kernels/ref.py; every product and sum is a _rn intrinsic.
 
 #include <cstdint>
@@ -145,6 +157,24 @@ sparse_select_pack_kernel(const float* __restrict__ x, void* __restrict__ values
   }
 }
 
+// Lane -> slot map of one row (0xFFFF: no value), built by its warp; an
+// index past cols is dropped, as the TPU kernels' compare drops it.
+__device__ __forceinline__ void build_slot_map(const uint32_t* wr, const IdxStream& st, int k,
+                                               int cols, uint16_t* slots, int lane) {
+  for (int l = lane; l < cols; l += 32) slots[l] = 0xFFFFu;
+  __syncwarp();
+  for (int i = lane; i < k; i += 32) {
+    const uint32_t u = packed_entry(wr, st, i);
+    if (u < static_cast<uint32_t>(cols)) slots[u] = static_cast<uint16_t>(i);
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ float sparse_value(const void* values, size_t o, int half_values) {
+  return half_values ? __half2float(static_cast<const __half*>(values)[o])
+                     : static_cast<const float*>(values)[o];
+}
+
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 sparse_scatter_axpy_kernel(const void* __restrict__ values,
                            const uint32_t* __restrict__ idx_words, const float* acc,
@@ -156,26 +186,36 @@ sparse_scatter_axpy_kernel(const void* __restrict__ values,
   const int row = blockIdx.x * rows_per_cta + warp;
   if (row >= rows) return;
   uint16_t* slots = slot_of + warp * cols;
-  for (int l = lane; l < cols; l += 32) slots[l] = 0xFFFFu;
-  __syncwarp();
-  const uint32_t* wr = idx_words + static_cast<size_t>(row) * st.words;
-  for (int i = lane; i < k; i += 32) {
-    const uint32_t u = packed_entry(wr, st, i);
-    if (u < static_cast<uint32_t>(cols)) slots[u] = static_cast<uint16_t>(i);
-  }
-  __syncwarp();
+  build_slot_map(idx_words + static_cast<size_t>(row) * st.words, st, k, cols, slots, lane);
   const size_t vbase = static_cast<size_t>(row) * k;
   const float* ar = acc + static_cast<size_t>(row) * cols;
   float* orow = out + static_cast<size_t>(row) * cols;
   for (int l = lane; l < cols; l += 32) {
     const uint16_t s = slots[l];
-    float d = 0.0f;
-    if (s != 0xFFFFu) {
-      const float v = half_values ? __half2float(static_cast<const __half*>(values)[vbase + s])
-                                  : static_cast<const float*>(values)[vbase + s];
-      d = __fmul_rn(w, v);
-    }
+    const float d = s != 0xFFFFu ? __fmul_rn(w, sparse_value(values, vbase + s, half_values))
+                                 : 0.0f;
     orow[l] = __fadd_rn(__fmul_rn(aw, ar[l]), d);
+  }
+}
+
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+sparse_unpack_scatter_kernel(const void* __restrict__ values,
+                             const uint32_t* __restrict__ idx_words, float* __restrict__ out,
+                             int rows, int cols, int k, IdxStream st, int rows_per_cta,
+                             int half_values) {
+  extern __shared__ uint16_t slot_of[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= rows_per_cta) return;
+  const int row = blockIdx.x * rows_per_cta + warp;
+  if (row >= rows) return;
+  uint16_t* slots = slot_of + warp * cols;
+  build_slot_map(idx_words + static_cast<size_t>(row) * st.words, st, k, cols, slots, lane);
+  const size_t vbase = static_cast<size_t>(row) * k;
+  float* orow = out + static_cast<size_t>(row) * cols;
+  for (int l = lane; l < cols; l += 32) {
+    const uint16_t s = slots[l];
+    orow[l] = s != 0xFFFFu ? __fadd_rn(0.0f, sparse_value(values, vbase + s, half_values))
+                           : 0.0f;
   }
 }
 
@@ -239,5 +279,21 @@ extern "C" int sparse_scatter_axpy_2d_launch(const void* values, const void* idx
   sparse_scatter_axpy_kernel<<<grid, rpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       values, static_cast<const uint32_t*>(idx_words), static_cast<const float*>(acc),
       static_cast<float*>(out), rows, cols, k, st, rpc, half_values, aw, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sparse_unpack_scatter_2d_launch(const void* values, const void* idx_words,
+                                               void* out, int rows, int cols, int k, int kpad,
+                                               int half_values, void* stream) {
+  if (rows == 0) return 0;
+  IdxStream st;
+  if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rpc = rows_per_cta_for(cols);
+  const size_t smem = static_cast<size_t>(rpc) * cols * sizeof(uint16_t);
+  const int grid = (rows + rpc - 1) / rpc;
+  sparse_unpack_scatter_kernel<<<grid, rpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      values, static_cast<const uint32_t*>(idx_words), static_cast<float*>(out), rows, cols,
+      k, st, rpc, half_values);
   return static_cast<int>(cudaGetLastError());
 }

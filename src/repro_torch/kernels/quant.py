@@ -1,15 +1,19 @@
-"""Wrappers of the wire kernels: quantize-pack (K1) and unpack-dequant-axpy
-(K2) in ``csrc/quant.cu``, sign-pack (K5a) and unpack-sign-axpy (K5b) in
-``csrc/sign.cu``, sparse select-pack (K6) and sparse scatter-axpy (K6c) in
-``csrc/sparse.cu``; the launch counters of these and of the low-rank
-kernels (K7a, K7b, ``kernels/lowrank.py``) in :data:`KERNEL_WRAPPERS`.
+"""Wrappers of the wire kernels: quantize-pack (K1), unpack-dequant-axpy
+(K2), quantize (K3), dequantize (K4a) and unpack-dequantize (K4b) in
+``csrc/quant.cu``, sign-pack (K5a) and unpack-sign-axpy (K5b) in
+``csrc/sign.cu``, sparse select-pack (K6), unpack-scatter (K6b) and
+scatter-axpy (K6c) in ``csrc/sparse.cu``; the launch counters of these and
+of the low-rank kernels (K7a, K7b, ``kernels/lowrank.py``) in
+:data:`KERNEL_WRAPPERS`.
 
 Same signatures and the same ``(rows, cols)`` contract as the JAX package's
-functions of the same names: one block per row, ``cols % 128 == 0``.  Each
+functions of the same names: one block per row, ``cols % 128 == 0`` — but
+for the two dense decodes, which the JAX package does not gate either: K4a
+takes any ``cols >= 1``, K4b any whole number of stream groups.  Each
 wrapper checks device, dtype, shape and contiguity, runs the plain version
 (``kernels/ref.py``) for CPU tensors, and for CUDA tensors launches its
 kernel on the current stream or raises (a row wider than ``MAX_COLS``
-included); there is no fallback.  Each keeps a
+included, for the kernels that stage a row); there is no fallback.  Each keeps a
 plain integer count of its kernel launches (``launches``), which
 ``chip_smoke.py`` reads to show the training path went through the kernels;
 runs of the plain version do not count.
@@ -31,21 +35,28 @@ from repro_torch.kernels.ref import (
     SIGN_SCALE_MODES,
     SPARSE_MODES,
     axpy_weights,
+    dequantize_2d_ref,
     f32_scalar,
     idx_bits_for,
+    inv_levels,
+    levels_for,
+    quantize_2d_ref,
     quantize_pack_2d_ref,
     sign_pack_2d_ref,
     sparse_geometry,
     sparse_scatter_axpy_2d_ref,
     sparse_select_pack_2d_ref,
+    sparse_unpack_scatter_2d_ref,
     stream_geometry,
+    unpack_dequant_2d_ref,
     unpack_dequant_axpy_2d_ref,
     unpack_sign_axpy_2d_ref,
 )
 
-# The widest row a kernel takes: K1 stages a row in shared memory (cols*4 B
-# <= 32 KiB); K6 stages its keys and slots (cols*6 B <= 48 KiB) and numbers
-# lanes and slots in 16 bits.  The plain versions take any width.
+# The widest row a kernel takes: K1 and K3 stage a row in shared memory
+# (cols*4 B <= 32 KiB); K6 stages its keys and slots (cols*6 B <= 48 KiB) and
+# numbers lanes and slots in 16 bits, K6b and K6c their slots.  The plain
+# versions, K4a and K4b take any width.
 MAX_COLS = 8192
 
 SPARSE_VALUE_DTYPES = (torch.float32, torch.float16)
@@ -62,7 +73,7 @@ def _check_cols(cols: int, bits: int) -> None:
     _check_block(cols)
 
 
-def _check_device(fn_name: str, dev: torch.device, cols: int) -> None:
+def _check_device(fn_name: str, dev: torch.device, cols: int = 0) -> None:
     """Past the CPU branch: a CUDA tensor whose rows the kernel takes."""
     if dev.type != "cuda":
         raise ValueError(f"{fn_name} runs on cpu or cuda tensors, got {dev}")
@@ -147,6 +158,81 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
                                             bits, aw, wl, _stream(dev))
     build.check_launch("unpack_dequant_axpy_2d", err)
     unpack_dequant_axpy_2d.launches += 1
+    return out
+
+
+def quantize_2d(x: torch.Tensor, seed: int, *, bits: int):
+    """Quantize a (rows, cols) f32 tensor, one scale per row: K1's head
+    with the codes unpacked.  Returns (int8 codes (rows, cols), f32 scale
+    (rows, 1)); ``bits`` in 2..8."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D (rows, cols), got shape {tuple(x.shape)}")
+    rows, cols = x.shape
+    if not 2 <= bits <= 8:
+        raise ValueError(f"quantize takes 2..8 bits, got {bits}")
+    _check_block(cols)
+    _check_tensor("x", x, torch.float32, (rows, cols), x.device)
+    if x.device.type == "cpu":
+        return quantize_2d_ref(x, seed, bits=bits)
+    _check_device("quantize_2d", x.device, cols)
+    codes = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
+    scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    lib = build.load("quant")
+    err = lib.quantize_2d_launch(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), rows, cols,
+                                 levels_for(bits), int(seed) & MASK32, _stream(x.device))
+    build.check_launch("quantize_2d", err)
+    quantize_2d.launches += 1
+    return codes, scale
+
+
+def dequantize_2d(codes: torch.Tensor, scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """``code * (scale * f32(1/L))`` over (rows, cols) int8 codes, any
+    ``cols >= 1``; f32 (rows, cols)."""
+    if codes.dim() != 2:
+        raise ValueError(f"codes must be 2-D (rows, cols), got {tuple(codes.shape)}")
+    rows, cols = codes.shape
+    if not 2 <= bits <= 8:
+        raise ValueError(f"dequantize takes 2..8 bits, got {bits}")
+    if cols < 1:
+        raise ValueError("codes need at least one column")
+    dev = codes.device
+    _check_tensor("codes", codes, torch.int8, (rows, cols), dev)
+    _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
+    if dev.type == "cpu":
+        return dequantize_2d_ref(codes, scale, bits=bits)
+    _check_device("dequantize_2d", dev)
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    lib = build.load("quant")
+    err = lib.dequantize_2d_launch(codes.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
+                                   cols, inv_levels(bits), _stream(dev))
+    build.check_launch("dequantize_2d", err)
+    dequantize_2d.launches += 1
+    return out
+
+
+def unpack_dequant_2d(packed: torch.Tensor, scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Fused unpack + dequantize: (rows, words) stream words, any whole
+    number of ``bits``-wide groups a row -> f32 (rows, words*32/bits)."""
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be 2-D (rows, words), got {tuple(packed.shape)}")
+    rows, w = packed.shape
+    if bits not in PACKABLE_BITS:
+        raise ValueError(f"packable bits are {PACKABLE_BITS}, got {bits}")
+    if w <= 0 or w % stream_geometry(bits)[1]:
+        raise ValueError(f"word count {w} is not whole {bits}-bit groups")
+    dev = packed.device
+    _check_tensor("packed", packed, torch.int32, (rows, w), dev)
+    _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
+    if dev.type == "cpu":
+        return unpack_dequant_2d_ref(packed, scale, bits=bits)
+    _check_device("unpack_dequant_2d", dev)
+    cols = w * 32 // bits
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    lib = build.load("quant")
+    err = lib.unpack_dequant_2d_launch(packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                       rows, cols, bits, inv_levels(bits), _stream(dev))
+    build.check_launch("unpack_dequant_2d", err)
+    unpack_dequant_2d.launches += 1
     return out
 
 
@@ -242,6 +328,38 @@ def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
     return values, words
 
 
+def sparse_unpack_scatter_2d(values: torch.Tensor, packed: torch.Tensor, *,
+                             cols: int) -> torch.Tensor:
+    """Fused unpack + scatter: (rows, k) values and their stream-packed
+    indices -> dense f32 (rows, cols), each value added into zeros (a kept
+    -0.0 decodes to +0.0) and every other lane +0.0."""
+    if values.dim() != 2:
+        raise ValueError(f"values must be 2-D (rows, k), got {tuple(values.shape)}")
+    rows, k = values.shape
+    _check_block(cols)
+    if not 0 < k <= cols:
+        raise ValueError(f"k={k} values do not fit a {cols}-wide row")
+    if values.dtype not in SPARSE_VALUE_DTYPES:
+        raise TypeError(f"sparse values are {SPARSE_VALUE_DTYPES}, got {values.dtype}")
+    idx_bits = idx_bits_for(cols)
+    cpg, _ = stream_geometry(idx_bits)
+    kpad = -(-k // cpg) * cpg
+    dev = values.device
+    _check_tensor("values", values, values.dtype, (rows, k), dev)
+    _check_tensor("packed", packed, torch.int32, (rows, kpad * idx_bits // 32), dev)
+    if dev.type == "cpu":
+        return sparse_unpack_scatter_2d_ref(values, packed, cols=cols)
+    _check_device("sparse_unpack_scatter_2d", dev, cols)
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    lib = build.load("sparse")
+    err = lib.sparse_unpack_scatter_2d_launch(
+        values.data_ptr(), packed.data_ptr(), out.data_ptr(), rows, cols, k, kpad,
+        int(values.dtype == torch.float16), _stream(dev))
+    build.check_launch("sparse_unpack_scatter_2d", err)
+    sparse_unpack_scatter_2d.launches += 1
+    return out
+
+
 def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torch.Tensor,
                            *, weight, acc_weight=1.0,
                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -284,22 +402,20 @@ def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torc
     return out
 
 
-quantize_pack_2d.launches = 0
-unpack_dequant_axpy_2d.launches = 0
-sign_pack_2d.launches = 0
-unpack_sign_axpy_2d.launches = 0
-sparse_select_pack_2d.launches = 0
-sparse_scatter_axpy_2d.launches = 0
-
-KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, sign_pack_2d,
-                   unpack_sign_axpy_2d, sparse_select_pack_2d, sparse_scatter_axpy_2d,
+KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, quantize_2d, dequantize_2d,
+                   unpack_dequant_2d, sign_pack_2d, unpack_sign_axpy_2d,
+                   sparse_select_pack_2d, sparse_unpack_scatter_2d, sparse_scatter_axpy_2d,
                    lowrank_project_2d, lowrank_axpy_2d)
 
 
 def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+reset_launch_counts()

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the wire kernels: quantize-pack and
-unpack-dequant-axpy, sign-pack and sign-axpy, sparse select-pack and
-scatter-axpy, low-rank project and low-rank axpy.
+unpack-dequant-axpy, quantize, dequantize and unpack-dequantize, sign-pack
+and sign-axpy, sparse select-pack, unpack-scatter and scatter-axpy,
+low-rank project and low-rank axpy.
 
 The port's copy of the JAX package's ``kernels/ref.py`` and the helpers of
 ``kernels/quant.py`` (``stream_geometry``, ``idx_bits_for``,
@@ -228,11 +229,24 @@ def quantize_pack_2d_ref(x: torch.Tensor, seed: int, *, bits: int):
     return torch.cat(words), torch.cat(scales)
 
 
+def inv_levels(bits: int) -> float:
+    """``f32(1/L)``, the constant of the JAX package's dequantize (the CUDA
+    kernels take it from the host, never compute it)."""
+    return float(np.float32(1.0 / levels_for(bits)))
+
+
 def dequantize_2d_ref(codes: torch.Tensor, scale: torch.Tensor, *, bits: int) -> torch.Tensor:
-    """``code * (scale * f32(1/L))`` — the reciprocal multiply of the JAX
-    package's dequantize."""
-    inv_l = float(np.float32(1.0 / levels_for(bits)))
-    return codes.to(torch.float32) * (scale.to(torch.float32) * inv_l)
+    """Plain version of kernel K4a: ``code * (scale * f32(1/L))`` — the
+    reciprocal multiply of the JAX package's dequantize."""
+    return codes.to(torch.float32) * (scale.to(torch.float32) * inv_levels(bits))
+
+
+def unpack_dequant_2d_ref(packed: torch.Tensor, scale: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Plain version of kernel K4b: :func:`unpack_codes`, then
+    :func:`dequantize_2d_ref`, a row chunk at a time."""
+    return torch.cat([dequantize_2d_ref(unpack_codes(packed[r:r + ROW_CHUNK], bits=bits),
+                                        scale[r:r + ROW_CHUNK], bits=bits)
+                      for r in range(0, max(packed.shape[0], 1), ROW_CHUNK)])
 
 
 def f32_scalar(v) -> float:
@@ -348,6 +362,8 @@ def sparse_scatter_2d_ref(values: torch.Tensor, indices: torch.Tensor, *,
 
 def sparse_unpack_scatter_2d_ref(values: torch.Tensor, packed: torch.Tensor, *,
                                  cols: int) -> torch.Tensor:
+    """Plain version of kernel K6b: unpack the indices, add the values into
+    zeros (so a kept -0.0 decodes to +0.0, as in the JAX kernel)."""
     k = values.shape[-1]
     return sparse_scatter_2d_ref(values, sparse_unpack_idx(packed, block=cols, k=k),
                                  cols=cols)

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K5a,
-K5b, K6, K6c, K7a and K7b against their plain versions.
+"""Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K3,
+K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b against their plain versions.
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -177,6 +177,8 @@ def test_wrappers_raise_on_rows_wider_than_the_kernels(cuda):
     vals, idx = ref.sparse_select_pack_2d_ref(x, 1, p=0.01, mode="topk")
     before = q.launch_counts()
     for call in (lambda: q.quantize_pack_2d(x, 1, bits=4),
+                 lambda: q.quantize_2d(x, 1, bits=8),
+                 lambda: q.sparse_unpack_scatter_2d(vals, idx, cols=cols),
                  lambda: q.unpack_dequant_axpy_2d(words, scale, x, bits=4, weight=1.0),
                  lambda: q.sign_pack_2d(x),
                  lambda: q.unpack_sign_axpy_2d(signs, sign_scale, x, weight=1.0),
@@ -276,3 +278,129 @@ def test_lowrank_wrappers_raise_past_what_the_kernels_take(cuda):
         lk.lowrank_project_2d(torch.zeros((2, 4, 256), device=cuda),
                               torch.zeros((4, 256, 2), device=cuda)[::2])
     assert q.launch_counts() == before
+
+
+# ---------------------------------------------- K1's NaN row, K3, K4a, K4b, K6b
+
+def _nan_row_holds(got, want, bits, row, lane):
+    """NaN scale on ``row``, every other row and every other code of the row
+    bit-equal (the NaN element's own code is implementation-defined)."""
+    (gc, gs), (wc, ws) = got, want
+    keep = torch.ones(gc.shape[0], dtype=torch.bool, device=gc.device)
+    keep[row] = False
+    if gc.dtype == torch.int32:
+        cg, cw = ref.unpack_codes(gc[row:row + 1], bits=bits), ref.unpack_codes(
+            wc[row:row + 1], bits=bits)
+    else:
+        cg, cw = gc[row:row + 1], wc[row:row + 1]
+    lanes = torch.arange(cg.shape[1], device=cg.device) != lane
+    return (bool(gs[row].isnan().all()) and torch.equal(gc[keep], wc[keep])
+            and ref.same_bits(gs, ws) and torch.equal(cg[:, lanes], cw[:, lanes]))
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("rows,cols", [(37, 128), (9, 1024)])
+def test_quantize_pack_kernel_nan_row(cuda, bits, rows, cols):
+    """K1 on a row holding a NaN: NaN scale, the row unnormalised (safe 1),
+    every other code bit-equal, the row decodes to NaN (K4b and K2)."""
+    x = _x(rows, cols, cuda, seed=bits) * 0.05
+    x[2, 5] = float("nan")
+    got = q.quantize_pack_2d(x, 0xA11CE, bits=bits)
+    assert _nan_row_holds(got, ref.quantize_pack_2d_ref(x, 0xA11CE, bits=bits), bits, 2, 5)
+    w2, s2 = got[0][2:3].contiguous(), got[1][2:3].contiguous()
+    assert q.unpack_dequant_2d(w2, s2, bits=bits).isnan().all()
+    assert q.unpack_dequant_axpy_2d(w2, s2, torch.zeros((1, cols), device=cuda), bits=bits,
+                                    weight=1.0).isnan().all()
+
+
+@pytest.mark.parametrize("bits", [2, 4, 5, 8])
+@pytest.mark.parametrize("rows,cols", [(37, 128), (64, 1024), (9, 512), (5, 8192)])
+def test_quantize_kernel_bit_equal(cuda, bits, rows, cols):
+    x = _x(rows, cols, cuda, seed=bits + cols)
+    before = q.quantize_2d.launches
+    codes, scale = q.quantize_2d(x, 0x51DE ^ bits, bits=bits)
+    torch.cuda.synchronize()
+    assert q.quantize_2d.launches == before + 1
+    c_ref, s_ref = ref.quantize_2d_ref(x, 0x51DE ^ bits, bits=bits)
+    assert torch.equal(codes, c_ref) and torch.equal(scale, s_ref)
+    x[2, 5] = float("nan")
+    got = q.quantize_2d(x, 3, bits=bits)
+    assert _nan_row_holds(got, ref.quantize_2d_ref(x, 3, bits=bits), bits, 2, 5)
+    assert q.dequantize_2d(got[0][2:3].contiguous(), got[1][2:3].contiguous(),
+                           bits=bits).isnan().all()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("rows,cols", [(37, 1), (9, 3), (64, 32), (5, 100), (40, 1024),
+                                       (3, 20000)])
+def test_dequantize_kernel_bit_equal(cuda, bits, rows, cols):
+    """K4a at any width (the vector path at cols % 4 == 0, the scalar path
+    otherwise), a NaN and a zero scale among the rows."""
+    x = _x(rows, cols, cuda, seed=cols)
+    codes, scale = ref.quantize_2d_ref(x, 9, bits=bits)
+    scale[1] = float("nan")
+    scale[2] = 0.0
+    before = q.dequantize_2d.launches
+    out = q.dequantize_2d(codes, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert q.dequantize_2d.launches == before + 1
+    assert ref.same_bits(out, ref.dequantize_2d_ref(codes, scale, bits=bits))
+    # an offset view: the scalar path on an unaligned pointer
+    if rows > 1:
+        c1, s1 = codes[1:], scale[1:]
+        assert ref.same_bits(q.dequantize_2d(c1, s1, bits=bits),
+                             ref.dequantize_2d_ref(c1, s1, bits=bits))
+
+
+@pytest.mark.parametrize("bits,cols", [
+    (bits, cols) for bits in (2, 3, 4, 5, 6, 7) for cols in (32, 96, 128, 1024, 8192, 16384)
+    if cols % ref.stream_geometry(bits)[0] == 0])
+def test_unpack_dequant_kernel_bit_equal(cuda, bits, cols):
+    """K4b at any whole number of stream groups a row, a NaN scale among them."""
+    x = _x(21, cols, cuda, seed=bits * cols)
+    words, scale = ref.quantize_pack_2d_ref(x, 4, bits=bits)
+    scale[3] = float("nan")
+    before = q.unpack_dequant_2d.launches
+    out = q.unpack_dequant_2d(words, scale, bits=bits)
+    torch.cuda.synchronize()
+    assert q.unpack_dequant_2d.launches == before + 1
+    assert ref.same_bits(out, ref.unpack_dequant_2d_ref(words, scale, bits=bits))
+
+
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("p", [0.05, 0.25, 1.0])
+@pytest.mark.parametrize("rows,cols", [(37, 128), (6, 384), (5, 8192)])
+def test_sparse_unpack_scatter_kernel_bit_equal(cuda, mode, p, rows, cols):
+    """K6b on K6's payloads, f32 and f16 values: bit-equal, and a row of
+    -0.0 (whose values are kept) decodes to +0.0, as the one-hot sum does."""
+    x = _edge_rows(_x(rows, cols, cuda, seed=cols + 3))
+    x[4] = -0.0
+    for value_dtype in (torch.float32, torch.float16):
+        vals, idx = q.sparse_select_pack_2d(x, 0xFACE, p=p, mode=mode, value_dtype=value_dtype)
+        before = q.sparse_unpack_scatter_2d.launches
+        out = q.sparse_unpack_scatter_2d(vals, idx, cols=cols)
+        torch.cuda.synchronize()
+        assert q.sparse_unpack_scatter_2d.launches == before + 1
+        assert ref.same_bits(out, ref.sparse_unpack_scatter_2d_ref(vals, idx, cols=cols))
+        assert not torch.signbit(out[4]).any()
+
+
+@pytest.mark.parametrize("spec", ["quant:8", "quant:8:32", "quant:4:32", "sparse:0.25"])
+def test_wire_quant8_and_dense_decode_on_card_match_cpu(cuda, spec):
+    """The 8-bit encode (K3 on the gate, plain at block 32) and the dense
+    decodes (K4a, K4b, K6b) of a stacked ragged leaf on the card equal the
+    CPU's; so does the base receive (decode, then axpy)."""
+    from repro_torch.distributed.wire import make_wire_format
+
+    wire = make_wire_format(spec)
+    leaf = _x(8, 3000, cuda, seed=13).reshape(8, 1, 3000) * 0.01
+    acc = _x(8, 3000, cuda, seed=14).reshape(8, 1, 3000)
+    p_gpu = wire.encode(leaf, 91)
+    p_cpu = wire.encode(leaf.cpu(), 91)
+    for k in p_cpu:
+        assert ref.same_bits(p_gpu[k].cpu(), p_cpu[k]), k
+    assert ref.same_bits(wire.decode(p_gpu, leaf).cpu(), wire.decode(p_cpu, leaf.cpu()))
+    a_cpu = acc.cpu()
+    wire.decode_axpy_(p_gpu, acc, 2.0, -1.0)
+    wire.decode_axpy_(p_cpu, a_cpu, 2.0, -1.0)
+    assert ref.same_bits(acc.cpu(), a_cpu)

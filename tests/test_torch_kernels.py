@@ -118,9 +118,16 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     tq.sparse_scatter_axpy_2d(vals, idx, x, weight=1.0)
     p = tq.lowrank_project_2d(x, torch.zeros((256, 2)))
     tq.lowrank_axpy_2d(p, torch.zeros((256, 2)), x, weight=1.0)
+    codes, scale8 = tq.quantize_2d(x, 1, bits=8)
+    tq.dequantize_2d(codes, scale8, bits=8)
+    tq.unpack_dequant_2d(words, scale, bits=4)
+    tq.sparse_unpack_scatter_2d(vals, idx, cols=256)
     assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0,
+                                  "quantize_2d": 0, "dequantize_2d": 0,
+                                  "unpack_dequant_2d": 0,
                                   "sign_pack_2d": 0, "unpack_sign_axpy_2d": 0,
-                                  "sparse_select_pack_2d": 0, "sparse_scatter_axpy_2d": 0,
+                                  "sparse_select_pack_2d": 0, "sparse_unpack_scatter_2d": 0,
+                                  "sparse_scatter_axpy_2d": 0,
                                   "lowrank_project_2d": 0, "lowrank_axpy_2d": 0}
     for fn in tq.KERNEL_WRAPPERS:                                 # the counter is the wrapper's
         fn.launches = 3

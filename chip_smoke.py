@@ -12,10 +12,13 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    K5b) the ``lm_head`` fold 802,816 x 1024 and the ``wk`` fold 16,384 x 512,
    for ``sparse`` (K6, K6c) the ``lm_head`` fold 6,324,224 x 128 and the
    ``wk`` fold 65,536 x 128, and a small ragged case; rows with all zeros,
-   -0.0, a NaN and exact ties.  Words, indices, values, scales and floats
+   -0.0, a NaN and exact ties, and for K6 also an all-NaN row, NaNs past k,
+   +-inf, a tie across a lane boundary and ties past a lane's span; K6 at
+   p 0.05, 0.25 and 1.0 in f32 and f16.  Words, indices, values, scales and floats
    must be bit-equal (a NaN matching any NaN).  Each is timed with CUDA
    events beside its bound (bytes moved over 3.35 TB/s, or operations over
-   67 TFLOP/s, whichever is larger) and beside its plain version.  For
+   67 TFLOP/s, whichever is larger) and beside its plain version; K6 at
+   p 0.05 topk and p 0.25 randk, beside ``torch.topk`` (selection only).  For
    ``lowrank`` (K7a, K7b) the folds are whole leaves with their lead batch
    of 8: ``lm_head`` (2048 x 49408) and ``embed`` (49408 x 2048), each with
    the cold factor shared at batch stride 0 and with warm per-slab factors,
@@ -60,8 +63,8 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
 5. quickstart — the paper's Fig. 1 table (``repro_torch.examples.quickstart``)
    on the card, held to the JAX package's test thresholds.
 6. profile — device time by kernel over a further 2-step DCD ``quant:4``
-   run, a 2-step CHOCO ``sign`` run, a 2-step DCD ``lowrank:2:warm`` run
-   and a 2-step DCD ``quant:8`` run.
+   run, a 2-step CHOCO ``sign`` run, a 2-step CHOCO ``sparse:0.05:topk``
+   run, a 2-step DCD ``lowrank:2:warm`` run and a 2-step DCD ``quant:8`` run.
 7. reference — reduced granite runs (DCD ``quant:4``, CHOCO ``sign``, DCD
    ``lowrank:2:warm``, and stacked DCD over 8-bit ``RandomQuantizer``) on
    the card against the same runs on the CPU (the kernels' plain versions),
@@ -160,15 +163,16 @@ KERNELS = {
 # the CUDA symbols of those kernels, for the profile
 KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "quantize_kernel",
                   "dequantize_kernel", "unpack_dequant_kernel", "sign_pack_kernel",
-                  "unpack_sign_axpy_kernel", "sparse_select_pack_kernel",
+                  "unpack_sign_axpy_kernel", "sparse_select_pack_",
                   "sparse_unpack_scatter_kernel", "sparse_scatter_axpy_kernel",
                   "lowrank_project_kernel", "lowrank_axpy_kernel")
 
 
 def max_abs_err(a, b) -> float:
-    """max |a - b| where neither is NaN."""
+    """max |a - b| where neither is NaN (equal infinities differ by 0)."""
     ok = ~(a.isnan() | b.isnan())
-    d = (a.float() - b.float()).abs()[ok]
+    af, bf = a.float(), b.float()
+    d = (af - bf).abs().masked_fill(af == bf, 0.0)[ok]
     return d.max().item() if d.numel() else 0.0
 
 
@@ -329,7 +333,10 @@ def phase_kernels_sign(torch, q, ref, rec: dict) -> None:
 
 def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
     """K6 (topk and randk) and K6c vs plain version at the ``sparse`` path's
-    shapes (block 128); f16 values and p = 0.25 off the lm_head fold."""
+    shapes (block 128) and K6's selection edge rows; K6 at p 0.05, 0.25 and
+    1.0 in f32 and f16.  K6 timed at p 0.05 topk (with ``torch.topk`` beside
+    it, selection only: it neither orders ties canonically nor packs) and at
+    p 0.25 randk."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2468)
@@ -337,11 +344,10 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
     for label, rows, cols in [("lm_head", 6324224, 128), ("wk", 65536, 128),
                               ("ragged", 37, 384)]:
         x = edge_rows(torch.randn((rows, cols), generator=gen, device=dev) * 0.02, ties=True)
-        cases = [(0.05, torch.float32)]
-        if label != "lm_head":
-            cases.append((0.25, torch.float16))
+        x = ref.sparse_selection_edge_rows(x, 5)
         for mode in ("topk", "randk"):
-            for p, vdt in cases:
+            for p, vdt in [(p, vdt) for p in (0.05, 0.25, 1.0)
+                           for vdt in (torch.float32, torch.float16)]:
                 got = q.sparse_select_pack_2d(x, seed, p=p, mode=mode, value_dtype=vdt)
                 torch.cuda.synchronize()
                 check(ref, rec, "sparse_select_pack_2d", label, got,
@@ -360,13 +366,20 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
         if label == "lm_head":
             out = torch.empty_like(acc)
             n, k, W = rows * cols, vals.shape[1], idx.shape[1]
+            k25, _, _, w25 = ref.sparse_geometry(cols, 0.25)
             rec["sparse_select_pack_2d"].update(
                 ms=time_ms(torch, lambda: q.sparse_select_pack_2d(x, seed, p=0.05, mode="topk"),
                            10),
                 plain_ms=time_ms(torch, lambda: ref.sparse_select_pack_2d_ref(
                     x, seed, p=0.05, mode="topk"), 2, 1),
+                library_ms=time_ms(torch, lambda: torch.topk(x.abs(), k, dim=1), 10),
                 # the selection: one key a lane, then k passes of cols comparisons
                 bound=bound(n * 4 + rows * k * 4 + rows * W * 4, rows * cols * (k + 1)))
+            t25 = time_ms(torch, lambda: q.sparse_select_pack_2d(x, seed, p=0.25, mode="randk"),
+                          10)
+            p25 = time_ms(torch, lambda: ref.sparse_select_pack_2d_ref(
+                x, seed, p=0.25, mode="randk"), 2, 1)
+            b25 = bound(n * 4 + rows * k25 * 4 + rows * w25 * 4, rows * cols * (k25 + 1))
             rec["sparse_scatter_axpy_2d"].update(
                 ms=time_ms(torch, lambda: q.sparse_scatter_axpy_2d(
                     vals, idx, acc, weight=1.0, acc_weight=1.0, out=out), 10),
@@ -374,6 +387,9 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
                     vals, idx, acc, weight=1.0, acc_weight=1.0), 2, 1),
                 bound=bound(rows * k * 4 + rows * W * 4 + 2 * n * 4, 3 * n))
             log_times(rec, ("sparse_select_pack_2d", "sparse_scatter_axpy_2d"))
+            log(f"time sparse_select_pack_2d lm_head p=0.25 randk: kernel {t25:.4f} ms, bound "
+                f"{b25[0]:.4f} ms ({b25[1]}), plain {p25:.2f} ms (torch.topk at p=0.05 is "
+                f"selection only: no canonical tie order, no packing)")
             del out
         del x, vals, idx, acc
         torch.cuda.empty_cache()
@@ -961,6 +977,7 @@ def main() -> int:
             totals[name] += c
     phase_profile(torch, "dcd", "quant:4")
     phase_profile(torch, "choco", "sign")
+    phase_profile(torch, "choco", "sparse:0.05:topk")
     phase_profile(torch, "dcd", "lowrank:2:warm")
     phase_profile(torch, "dcd", "quant:8")
     phase_reference(torch, "dcd", "quant:4")

@@ -15,18 +15,38 @@
 //   past k is zero, word w of group g sits at column w*Gi + g.
 //   Bound on this card: memory.  The row is read once (4 B an element) and
 //   leaves as k values and kpad*idx_bits/32 words: at cols 128 and p 0.05,
-//   512 B in and 56 B out a row.  The selection is k passes over the row's
-//   keys, k*cols comparisons a row (896 at cols 128, k 7), well below the
-//   bytes line at these shapes.
-//   Design: one warp per row, several rows per CTA.  The row's keys are
-//   computed once into shared memory.  Round r takes the warp maximum of the
-//   48-bit value (key << 16 | 0xFFFF - lane) over the lanes that come after
-//   round r-1's winner in that order, so no lane needs a "taken" flag and a
-//   key of 0 is an ordinary key (a lane's value is never 0, which is the
-//   empty value).  The winners go to shared memory; then the warp gathers
-//   the k values and writes the packed words, each word built in a register
-//   from the entries that overlap it.
-//
+//   512 B in and 56 B out a row.
+//   What held the first design back: one warp a row with the keys in shared
+//   memory, each round re-reading them and reducing a 48-bit (key, lane)
+//   value through ten dependent 64-bit shuffles, then a second global read
+//   of every kept value; about 9x the bytes bound at k 7.  Any design of k
+//   dependent warp-wide rounds a row stays several times over the bound.
+//   Design at the wire's block (128 columns) and k <= 8, the `sparse`
+//   wire's p 0.05: one thread a row and no rounds (the row path below).  A
+//   cheap lower bound on the row's k-th key (the k-th largest of 16 group
+//   maxima) leaves about 10 candidates of 128, which go into a sorted list of
+//   8 in registers; keep the loops unrolled to constant indices, since an
+//   array indexed at run time lands in local memory and costs more than the
+//   selection itself.
+//   Design elsewhere (k > 8 at 128 columns, other widths): rounds.  Lane l of
+//   a row's lanes owns the contiguous span [l*C, (l+1)*C) in registers
+//   (16-byte loads) and orders it once (stable odd-even transposition:
+//   neighbours swap on a strictly larger key only).  A round is one
+//   `redux.sync` maximum over the live heads and one ballot; the lowest lane
+//   holding the maximum wins (spans ascend, so it has the smallest column and
+//   the tie-break needs no bits of the key) and shifts its head.  A used-up
+//   lane is not live, so a key of 0 (NaN, a zero hash) stays ordinary and
+//   p = 1 works.  Rounds go in chunks: lane t keeps round t's ballot, then
+//   fetches entry t's column and value from the winner's registers by
+//   shuffle (no second read); the values leave in one store and the columns
+//   are OR-ed into the row's index words staged in shared memory.  Rows of
+//   128 columns go two to a warp, 16 lanes of 8 columns, with a full-warp
+//   reduction for each (a partial-mask `redux.sync` takes a serialised
+//   path); other rows up to 1024 columns one to a warp; wider rows stage
+//   values and each lane's sorted span in shared memory (stable insertion
+//   sort) and run the same rounds.  CTAs are persistent and load the next
+//   row while they select.
+
 // K6c `sparse_scatter_axpy` replaces the TPU kernel `sparse_scatter_axpy_2d`
 // (src/repro/kernels/quant.py, `_sparse_scatter_axpy_kernel` +
 // `_sparse_idx_entries`).
@@ -54,6 +74,7 @@
 // Exactness: the kernels are bit-equal to the plain PyTorch versions in
 // kernels/ref.py; every product and sum is a _rn intrinsic.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -64,6 +85,10 @@ constexpr int kWarpsPerCta = 8;
 constexpr int kMaxCols = 8192;              // lane and slot numbers fit 16 bits;
                                             // one row's keys and slots fit 48 KiB
 constexpr int kRowLanes = 2048;             // shared-memory lanes per CTA
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kSelWarps = 8;                // K6: warps per CTA
+constexpr int kRegCols = 1024;              // K6: widest row held in registers
+constexpr int kSelStageBytes = 96 * 1024;   // K6: shared memory of a CTA past kRegCols
 
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
   const uint32_t state = x * 747796405u + 2891336453u;
@@ -84,76 +109,446 @@ __device__ __forceinline__ uint32_t packed_entry(const uint32_t* wr, const IdxSt
   return u & ((1u << s.bits) - 1u);
 }
 
-__global__ void __launch_bounds__(kWarpsPerCta * 32)
-sparse_select_pack_kernel(const float* __restrict__ x, void* __restrict__ values,
-                          uint32_t* __restrict__ idx_words, int rows, int cols, int k,
-                          IdxStream st, int rows_per_cta, int topk, int half_values,
-                          uint32_t seed, float rescale) {
-  extern __shared__ uint32_t smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= rows_per_cta) return;
-  const int row = blockIdx.x * rows_per_cta + warp;
-  if (row >= rows) return;
-  const int kpad = st.groups * st.cpg;
-  uint32_t* keys = smem + warp * cols;
-  uint16_t* sel = reinterpret_cast<uint16_t*>(smem + rows_per_cta * cols) + warp * kpad;
-  const float* xr = x + static_cast<size_t>(row) * cols;
+__device__ __forceinline__ uint32_t select_key(float v, uint32_t counter, int topk,
+                                               uint32_t seed) {
+  if (!topk) return pcg_hash(counter ^ seed);
+  const uint32_t mag = __float_as_uint(v) & 0x7FFFFFFFu;
+  return mag > 0x7F800000u ? 0u : mag + 1u;
+}
 
-  const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(cols);
-  for (int l = lane; l < cols; l += 32) {
-    uint32_t key;
-    if (topk) {
-      const uint32_t mag = __float_as_uint(xr[l]) & 0x7FFFFFFFu;
-      key = mag > 0x7F800000u ? 0u : mag + 1u;
-    } else {
-      key = pcg_hash((base + static_cast<uint32_t>(l)) ^ seed);
-    }
-    keys[l] = key;
+// One round of the selection in each of the warp's R rows (segments of
+// 32/R lanes, `seg` this lane's): true on the lane whose head is its
+// segment's largest live head, the lowest such lane on a tie (the spans are
+// contiguous and ascending, so that lane's head has the smallest column).  A
+// used-up lane is not live, so a key of 0 stays an ordinary key.  The
+// reductions run over the whole warp, one a segment (a partial mask would
+// serialise them).  *tops: the warp's lanes holding their segment's maximum.
+template <int R>
+__device__ __forceinline__ bool wins_round(bool live, uint32_t head, int seg,
+                                           uint32_t lanes_below, uint32_t* tops) {
+  const uint32_t h = live ? head : 0u;
+  uint32_t m = 0u;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const uint32_t ms = __reduce_max_sync(kFullMask, seg == s ? h : 0u);
+    m = seg == s ? ms : m;
+  }
+  const bool top = live && head == m;
+  *tops = __ballot_sync(kFullMask, top);                    // every lane votes
+  return top && (*tops & lanes_below) == 0u;
+}
+
+// Entry e of the row: its value to the value row, its column OR-ed into the
+// row's index words staged in shared memory (entry e sits in group e % Gi at
+// stream position e / Gi; a field that crosses a word spills into the
+// group's next word).
+__device__ __forceinline__ void emit_entry(void* values, uint32_t* words, const IdxStream& st,
+                                           int row, int k, int e, int col, float v, int topk,
+                                           int half_values, float rescale) {
+  if (!topk) v = __fmul_rn(v, rescale);
+  const size_t o = static_cast<size_t>(row) * k + e;
+  if (half_values) {
+    static_cast<__half*>(values)[o] = __float2half_rn(v);
+  } else {
+    static_cast<float*>(values)[o] = v;
+  }
+  const int j = st.groups == 1 ? e : e / st.groups, g = e - j * st.groups;
+  const int bit = j * st.bits, w = (bit >> 5) * st.groups + g, off = bit & 31;
+  const uint32_t u = static_cast<uint32_t>(col);
+  atomicOr(words + w, u << off);
+  if (off + st.bits > 32) atomicOr(words + w + st.groups, u >> (32 - off));
+}
+
+// The row's staged index words: zeroed before its entries are OR-ed in, then
+// copied out whole (the tail past k stays zero), by the S lanes of its
+// segment (lane sl).
+__device__ __forceinline__ void zero_words(uint32_t* words, const IdxStream& st, int sl, int S) {
+  if (st.words <= S) {
+    if (sl < st.words) words[sl] = 0u;
+  } else {
+    for (int t = sl; t < st.words; t += S) words[t] = 0u;
   }
   __syncwarp();
+}
 
-  unsigned long long prev = 1ull << 48;        // above every lane's value
-  for (int r = 0; r < k; ++r) {
-    unsigned long long best = 0ull;
-    for (int l = lane; l < cols; l += 32) {
-      const unsigned long long v =
-          (static_cast<unsigned long long>(keys[l]) << 16) | static_cast<unsigned>(0xFFFF - l);
-      if (v < prev && v > best) best = v;
+__device__ __forceinline__ void store_words(const uint32_t* words, const IdxStream& st,
+                                            uint32_t* wr, int sl, int S, bool valid) {
+  __syncwarp();
+  if (valid) {
+    if (st.words <= S) {
+      if (sl < st.words) wr[sl] = words[sl];
+    } else {
+      for (int t = sl; t < st.words; t += S) wr[t] = words[t];
+    }
+  }
+  __syncwarp();
+}
+
+template <int C>
+__device__ __forceinline__ void load_span(const float* xr, int lane, int vec, float (&v)[C]) {
+  const float* s = xr + lane * C;
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const float4 f = reinterpret_cast<const float4*>(s)[q];
+      v[4 * q] = f.x;
+      v[4 * q + 1] = f.y;
+      v[4 * q + 2] = f.z;
+      v[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = s[j];
+  }
+}
+
+// Rows of cols = 32*C/R <= 1024, R rows a warp: a segment of S = 32/R lanes
+// takes a row, and lane l of it holds columns [l*C, (l+1)*C) in registers:
+// values in column order, keys (shifted out as they are taken) and span
+// positions in canonical order.  Rounds go in chunks of S: lane t of a
+// segment keeps round t's ballot, and after the chunk fetches entry t's
+// column and value from the winner's registers, so the chunk's entries leave
+// in one coalesced store.  Persistent: a warp walks groups of R rows at the
+// grid's stride and loads the next group while it selects from this one.
+template <int C, int R>
+__global__ void __launch_bounds__(kSelWarps * 32)
+sparse_select_pack_regs_kernel(const float* __restrict__ x, void* __restrict__ values,
+                               uint32_t* __restrict__ idx_words, int rows, int cols, int k,
+                               IdxStream st, int topk, int half_values, uint32_t seed,
+                               float rescale, int vec) {
+  constexpr int S = 32 / R;
+  extern __shared__ uint32_t words_of[];
+  const int lane = threadIdx.x & 31, seg = lane / S, sl = lane % S, lead = lane - sl;
+  const uint32_t lanes_below = ((1u << lane) - 1u) & ~((1u << lead) - 1u);
+  uint32_t* words = words_of + ((threadIdx.x >> 5) * R + seg) * st.words;
+  const int stride = gridDim.x * kSelWarps * R;
+  int row0 = (blockIdx.x * kSelWarps + (threadIdx.x >> 5)) * R;
+  float next[C];
+  if (row0 + seg < rows) load_span<C>(x + static_cast<size_t>(row0 + seg) * cols, sl, vec, next);
+  for (; row0 < rows; row0 += stride) {
+    const int row = row0 + seg;
+    const bool valid = row < rows;
+    float v[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) v[j] = next[j];
+    if (row + stride < rows)
+      load_span<C>(x + static_cast<size_t>(row + stride) * cols, sl, vec, next);
+    uint32_t key[C];
+    int at[C];                          // span position -> column in the span
+    const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(cols) +
+                          static_cast<uint32_t>(sl * C);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      key[j] = select_key(v[j], base + static_cast<uint32_t>(j), topk, seed);
+      at[j] = j;
+    }
+    // canonical order of the span: odd-even transposition swaps neighbours
+    // on a strictly larger key only, so equal keys keep ascending columns
+#pragma unroll
+    for (int ph = 0; ph < C; ++ph) {
+#pragma unroll
+      for (int j = ph & 1; j + 1 < C; j += 2) {
+        const bool up = key[j + 1] > key[j];
+        const uint32_t ka = key[j], kb = key[j + 1];
+        const int a = at[j], b = at[j + 1];
+        key[j] = up ? kb : ka;
+        key[j + 1] = up ? ka : kb;
+        at[j] = up ? b : a;
+        at[j + 1] = up ? a : b;
+      }
+    }
+    constexpr int kAtWords = (C + 3) / 4;
+    uint32_t at8[kAtWords];             // at[] packed, a byte each
+#pragma unroll
+    for (int q = 0; q < kAtWords; ++q) {
+      at8[q] = 0u;
+#pragma unroll
+      for (int j = 4 * q; j < C && j < 4 * q + 4; ++j)
+        at8[q] |= static_cast<uint32_t>(at[j]) << (8 * (j - 4 * q));
+    }
+    zero_words(words, st, sl, S);
+    int left = valid ? C : 0;           // the head is key[0] while left > 0
+    for (int r0 = 0; r0 < k; r0 += S) {
+      const int n = min(S, k - r0), taken = C - left;
+      uint32_t won = 0u;                // bit t: this lane won round r0 + t
+      uint32_t mine = 1u << lead;       // lane t of a segment: the tops of round r0 + t
+#pragma unroll 4
+      for (int t = 0; t < n; ++t) {
+        uint32_t tops;
+        if (wins_round<R>(left > 0, key[0], seg, lanes_below, &tops)) {
+#pragma unroll
+          for (int j = 0; j + 1 < C; ++j) key[j] = key[j + 1];
+          won |= 1u << t;
+          --left;
+        }
+        if (sl == t) mine = tops;
+      }
+      // entry r0 + sl: the winner's span position is its count of earlier
+      // wins, its column and value come from the winner's registers
+      const int owner = __ffs(mine & (R == 1 ? kFullMask : ((1u << S) - 1u) << lead)) - 1;
+      const uint32_t owner_won = __shfl_sync(kFullMask, won, owner);
+      const int pos = __shfl_sync(kFullMask, taken, owner) + __popc(owner_won & ((1u << sl) - 1u));
+      uint32_t a8 = 0u;
+#pragma unroll
+      for (int q = 0; q < kAtWords; ++q) {
+        const uint32_t o = __shfl_sync(kFullMask, at8[q], owner);
+        a8 = (pos >> 2) == q ? o : a8;
+      }
+      const int a = (a8 >> (8 * (pos & 3))) & 0xFFu;
+      float val = 0.0f;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const float o = __shfl_sync(kFullMask, v[j], owner);
+        val = a == j ? o : val;
+      }
+      if (valid && sl < n)
+        emit_entry(values, words, st, row, k, r0 + sl, (owner - lead) * C + a, val, topk,
+                   half_values, rescale);
+    }
+    store_words(words, st, idx_words + static_cast<size_t>(row) * st.words, sl, S, valid);
+  }
+}
+
+// Rows of the wire's block (128 columns) with k <= kRowK: one thread a row,
+// no rounds.  The warp stages its 32 rows in shared memory (cp.async,
+// 512 contiguous bytes a copy; rows padded to kRowStride floats, so each
+// thread's 16-byte reads of its own row are free of bank conflicts).  Pass
+// 1: the key maximum of each of kGroups groups of 8 columns; the k-th
+// largest of those maxima, lo, is a lower bound on the row's k-th key (k
+// group maxima are k elements at or above it), so every kept element has a
+// key >= lo.  Pass 2: a bit a column for key >= lo.  A row with more than
+// kRowTrim candidates (zeros, a constant row: all tied at lo) keeps those
+// above lo and only the first ties it needs.  Then the candidates (about 10
+// of 128 in random rows), in ascending column, are inserted into a sorted
+// list of kRowK (key, column) in registers; a strictly larger key moves
+// ahead, so equal keys keep ascending columns.  An empty slot holds key 0,
+// below every candidate: topk keys here are select_key's plus one, and a
+// randk row holds at most one zero hash (pcg_hash is a bijection), so no
+// group maximum and no lo is 0.  The loop runs while any lane of the warp
+// has a candidate left; a lane with none inserts key 0, which moves nothing.
+constexpr int kRowCols = 128;
+constexpr int kRowStride = kRowCols + 4;
+constexpr int kRowWarps = 2;
+constexpr int kRowK = 8;
+constexpr int kGroups = 16;
+constexpr int kGroupCols = kRowCols / kGroups;
+constexpr int kRowTrim = 32;                // candidates a row past which ties at lo are cut
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <bool TOPK>
+__device__ __forceinline__ uint32_t row_key(float v, uint32_t counter, uint32_t seed) {
+  if (!TOPK) return pcg_hash(counter ^ seed);
+  const uint32_t mag = __float_as_uint(v) & 0x7FFFFFFFu;
+  return mag > 0x7F800000u ? 1u : mag + 2u;
+}
+
+template <bool TOPK>
+__global__ void __launch_bounds__(kRowWarps * 32)
+sparse_select_pack_row_kernel(const float* __restrict__ x, void* __restrict__ values,
+                              uint32_t* __restrict__ idx_words, int rows, int k,
+                              int n_words, int half_values, uint32_t seed, float rescale) {
+  __shared__ __align__(16) float stage[kRowWarps][32 * kRowStride];
+  const int lane = threadIdx.x & 31;
+  float* s = stage[threadIdx.x >> 5];
+  const int row0 = (blockIdx.x * kRowWarps + (threadIdx.x >> 5)) * 32;
+  const int n = min(32, rows - row0);
+  for (int r = 0; r < n; ++r)
+    cp_async16(s + r * kRowStride + 4 * lane,
+               x + static_cast<size_t>(row0 + r) * kRowCols + 4 * lane);
+  cp_async_wait_all();
+  __syncwarp();
+  const int row = row0 + lane;
+  const bool valid = lane < n;
+  const float* sr = s + lane * kRowStride;
+  const float4* sr4 = reinterpret_cast<const float4*>(sr);
+  const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(kRowCols);
+  // pass 1: the largest kRowK group maxima, descending, and the bound lo
+  uint32_t top[kRowK];
+#pragma unroll
+  for (int i = 0; i < kRowK; ++i) top[i] = 0u;
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    uint32_t m = 0u;
+#pragma unroll
+    for (int q = 0; q < kGroupCols / 4; ++q) {
+      const float4 f = sr4[g * kGroupCols / 4 + q];
+      const float v[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        m = max(m, row_key<TOPK>(v[c], base + static_cast<uint32_t>(g * kGroupCols + 4 * q + c),
+                                 seed));
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, o);
-      best = other > best ? other : best;
+    for (int i = 0; i < kRowK; ++i) {
+      const uint32_t hi = max(top[i], m);
+      m = min(top[i], m);
+      top[i] = hi;
     }
-    if (lane == 0) sel[r] = static_cast<uint16_t>(0xFFFF - (best & 0xFFFFull));
-    prev = best;
   }
-  __syncwarp();
+  uint32_t lo = top[0];
+#pragma unroll
+  for (int i = 1; i < kRowK; ++i) lo = i < k ? min(lo, top[i]) : lo;
+  // pass 2: the candidates, a bit a column
+  uint32_t cand[kRowCols / 32];
+#pragma unroll
+  for (int w = 0; w < kRowCols / 32; ++w) {
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float4 f = sr4[8 * w + q];
+      const float v[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 32 * w + 4 * q + c;
+        if (row_key<TOPK>(v[c], base + static_cast<uint32_t>(col), seed) >= lo)
+          bits |= 1u << (col & 31);
+      }
+    }
+    cand[w] = valid ? bits : 0u;
+  }
+  // a row with many keys tied at lo (zeros, a constant row) keeps only the
+  // first ties it needs, k less its keys above lo, in ascending column
+  const int count = __popc(cand[0]) + __popc(cand[1]) + __popc(cand[2]) + __popc(cand[3]);
+  if (__any_sync(kFullMask, count > kRowTrim)) {
+    uint32_t above[kRowCols / 32];
+    int need = k;
+#pragma unroll
+    for (int w = 0; w < kRowCols / 32; ++w) {
+      uint32_t bits = 0u;
+#pragma unroll 1
+      for (int j = 0; j < 32; ++j) {
+        const int col = 32 * w + j;
+        if (row_key<TOPK>(sr[col], base + static_cast<uint32_t>(col), seed) > lo)
+          bits |= 1u << j;
+      }
+      above[w] = bits & cand[w];
+      need -= __popc(above[w]);
+    }
+#pragma unroll
+    for (int w = 0; w < kRowCols / 32; ++w) {
+      uint32_t tie = cand[w] & ~above[w];
+      for (int drop = __popc(tie) - max(need, 0); drop > 0; --drop)
+        tie &= ~(0x80000000u >> __clz(tie));          // the highest tie goes
+      need -= __popc(tie);
+      cand[w] = above[w] | tie;
+    }
+  }
+  // the candidates into the sorted list, in ascending column
+  uint32_t lk[kRowK];
+  int lc[kRowK];
+#pragma unroll
+  for (int i = 0; i < kRowK; ++i) {
+    lk[i] = 0u;
+    lc[i] = 0;
+  }
+  while (__any_sync(kFullMask, (cand[0] | cand[1] | cand[2] | cand[3]) != 0u)) {
+    int col = 0;
+    uint32_t key = 0u;
+    bool found = false;
+#pragma unroll
+    for (int w = 0; w < kRowCols / 32; ++w) {
+      if (!found && cand[w] != 0u) {
+        col = 32 * w + __ffs(cand[w]) - 1;
+        cand[w] &= cand[w] - 1u;
+        found = true;
+      }
+    }
+    if (found) key = row_key<TOPK>(sr[col], base + static_cast<uint32_t>(col), seed);
+    bool gt[kRowK];
+#pragma unroll
+    for (int i = 0; i < kRowK; ++i) gt[i] = key > lk[i];
+#pragma unroll
+    for (int i = kRowK - 1; i > 0; --i) {
+      lk[i] = gt[i] ? (gt[i - 1] ? lk[i - 1] : key) : lk[i];
+      lc[i] = gt[i] ? (gt[i - 1] ? lc[i - 1] : col) : lc[i];
+    }
+    lk[0] = gt[0] ? key : lk[0];
+    lc[0] = gt[0] ? col : lc[0];
+  }
+  if (!valid) return;
+  // entry e: its value, its column at stream bit 7e (one group at 128 columns)
+  uint32_t w0 = 0u, w1 = 0u;
+#pragma unroll
+  for (int e = 0; e < kRowK; ++e) {
+    if (e < k) {
+      float v = sr[lc[e]];
+      if (!TOPK) v = __fmul_rn(v, rescale);
+      const size_t o = static_cast<size_t>(row) * k + e;
+      if (half_values) {
+        static_cast<__half*>(values)[o] = __float2half_rn(v);
+      } else {
+        static_cast<float*>(values)[o] = v;
+      }
+      const uint32_t u = static_cast<uint32_t>(lc[e]);
+      if (7 * e < 32) w0 |= u << (7 * e);
+      if (7 * e + 7 > 32) w1 |= 7 * e < 32 ? u >> (32 - 7 * e) : u << (7 * e - 32);
+    }
+  }
+  uint32_t* wr = idx_words + static_cast<size_t>(row) * n_words;
+  wr[0] = w0;
+  wr[1] = w1;
+  for (int w = 2; w < n_words; ++w) wr[w] = 0u;
+}
 
-  for (int i = lane; i < k; i += 32) {
-    float v = xr[sel[i]];
-    if (!topk) v = __fmul_rn(v, rescale);
-    const size_t o = static_cast<size_t>(row) * k + i;
-    if (half_values) {
-      static_cast<__half*>(values)[o] = __float2half_rn(v);
-    } else {
-      static_cast<float*>(values)[o] = v;
+// Rows of cols > 1024: the same rounds over spans staged in shared memory.
+// Per warp: the row's values, each lane's span sorted in canonical order
+// (stable insertion sort of keys and 16-bit columns), and the index words.
+__global__ void __launch_bounds__(kSelWarps * 32)
+sparse_select_pack_smem_kernel(const float* __restrict__ x, void* __restrict__ values,
+                               uint32_t* __restrict__ idx_words, int rows, int cols, int k,
+                               IdxStream st, int topk, int half_values, uint32_t seed,
+                               float rescale) {
+  extern __shared__ uint32_t stage[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const uint32_t lanes_below = (1u << lane) - 1u;
+  const int c = cols / 32, b = lane * c;
+  float* sval = reinterpret_cast<float*>(stage + warp * (2 * cols + st.words + cols / 2));
+  uint32_t* skey = reinterpret_cast<uint32_t*>(sval + cols);
+  uint32_t* words = skey + cols;
+  uint16_t* scol = reinterpret_cast<uint16_t*>(words + st.words);
+  for (int row = blockIdx.x * warps + warp; row < rows; row += gridDim.x * warps) {
+    const float* xr = x + static_cast<size_t>(row) * cols;
+    for (int l = lane; l < cols; l += 32) sval[l] = xr[l];
+    __syncwarp();
+    const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(cols);
+    for (int j = 0; j < c; ++j) {
+      const uint32_t key = select_key(sval[b + j], base + static_cast<uint32_t>(b + j), topk,
+                                      seed);
+      int i = j;
+      for (; i > 0 && skey[b + i - 1] < key; --i) {
+        skey[b + i] = skey[b + i - 1];
+        scol[b + i] = scol[b + i - 1];
+      }
+      skey[b + i] = key;
+      scol[b + i] = static_cast<uint16_t>(b + j);
     }
-  }
-  uint32_t* wr = idx_words + static_cast<size_t>(row) * st.words;
-  for (int t = lane; t < st.words; t += 32) {
-    const int wi = t / st.groups, g = t % st.groups;
-    const int j0 = (32 * wi) / st.bits;
-    int j1 = (32 * wi + 31) / st.bits;
-    if (j1 > st.cpg - 1) j1 = st.cpg - 1;
-    uint32_t word = 0u;
-    for (int j = j0; j <= j1; ++j) {
-      const int i = j * st.groups + g;
-      const uint32_t u = i < k ? sel[i] : 0u;
-      const int off = j * st.bits - 32 * wi;
-      word |= off >= 0 ? u << off : u >> (-off);
+    zero_words(words, st, lane, 32);
+    int h = 0;                          // the head is skey[b + h] while h < c
+    for (int r0 = 0; r0 < k; r0 += 32) {
+      const int n = min(32, k - r0), taken = h;
+      uint32_t won = 0u, tops;
+      for (int t = 0; t < n; ++t) {
+        if (wins_round<1>(h < c, h < c ? skey[b + h] : 0u, 0, lanes_below, &tops)) {
+          won |= 1u << t;
+          ++h;
+        }
+      }
+      int pos = taken;
+      for (uint32_t w = won; w != 0u; w &= w - 1u, ++pos) {
+        const int col = scol[b + pos];
+        emit_entry(values, words, st, row, k, r0 + __ffs(w) - 1, col, sval[col], topk,
+                   half_values, rescale);
+      }
     }
-    wr[t] = word;
+    store_words(words, st, idx_words + static_cast<size_t>(row) * st.words, lane, 32, true);
   }
 }
 
@@ -240,6 +635,38 @@ int rows_per_cta_for(int cols) {
   return r < 1 ? 1 : (r > kWarpsPerCta ? kWarpsPerCta : r);
 }
 
+// Enough CTAs of `warps` warps to fill every SM at the kernel's occupancy,
+// and no more than the rows need.  The CTAs that fit the device are looked up
+// once for each kernel, device and shared-memory size, and kept.
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int rows, int warps, size_t smem) {
+  thread_local int dev_of = -1, fit = 0;
+  thread_local size_t smem_of = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev != dev_of || smem != smem_of) {
+    int sms = 1, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
+    dev_of = dev;
+    smem_of = smem;
+    fit = std::max(1, per_sm) * sms;
+  }
+  const long long need = (static_cast<long long>(rows) + warps - 1) / warps;
+  return static_cast<int>(std::min<long long>(need, fit));
+}
+
+template <int C, int R>
+void launch_select_regs(const float* x, void* values, uint32_t* words, int rows, int cols,
+                        int k, const IdxStream& st, int topk, int half_values, uint32_t seed,
+                        float rescale, int vec, cudaStream_t s) {
+  const size_t smem = static_cast<size_t>(kSelWarps) * R * st.words * sizeof(uint32_t);
+  const int grid = persistent_grid(sparse_select_pack_regs_kernel<C, R>, (rows + R - 1) / R,
+                                   kSelWarps, smem);
+  sparse_select_pack_regs_kernel<C, R><<<grid, kSelWarps * 32, smem, s>>>(
+      x, values, words, rows, cols, k, st, topk, half_values, seed, rescale, vec);
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (kernels/build.py).  Each returns the
@@ -255,13 +682,52 @@ extern "C" int sparse_select_pack_2d_launch(const void* x, void* values, void* i
   IdxStream st;
   if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rpc = rows_per_cta_for(cols);
-  const size_t smem = static_cast<size_t>(rpc) * (cols * sizeof(uint32_t) +
-                                                  kpad * sizeof(uint16_t));
-  const int grid = (rows + rpc - 1) / rpc;
-  sparse_select_pack_kernel<<<grid, rpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), values, static_cast<uint32_t*>(idx_words), rows, cols,
-      k, st, rpc, topk, half_values, seed, rescale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  uint32_t* words = static_cast<uint32_t*>(idx_words);
+  const int vec = (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
+  if (cols == kRowCols && st.groups == 1 && k <= kRowK && vec) {
+    const int grid = (rows + kRowWarps * 32 - 1) / (kRowWarps * 32);
+    if (topk) {
+      sparse_select_pack_row_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
+          xf, values, words, rows, k, st.words, half_values, seed, rescale);
+    } else {
+      sparse_select_pack_row_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
+          xf, values, words, rows, k, st.words, half_values, seed, rescale);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (cols <= kRegCols) {
+    switch (cols / 32) {
+#define K6_REGS(C, R)                                                                  \
+  case (C) / (R):                                                                      \
+    launch_select_regs<(C), (R)>(xf, values, words, rows, cols, k, st, topk, half_values, \
+                                 seed, rescale, vec, s);                               \
+    break;
+      K6_REGS(8, 2)     // the sparse wire's block: two rows a warp, 8 columns a lane
+      K6_REGS(8, 1) K6_REGS(12, 1) K6_REGS(16, 1) K6_REGS(20, 1) K6_REGS(24, 1) K6_REGS(28, 1)
+      K6_REGS(32, 1)
+#undef K6_REGS
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  // per warp: values and keys (4 B a column), index words, 16-bit columns
+  const size_t per_warp =
+      (2 * static_cast<size_t>(cols) + st.words + cols / 2) * sizeof(uint32_t);
+  const int warps = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(kSelWarps, kSelStageBytes / per_warp)));
+  const size_t smem = warps * per_warp;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(sparse_select_pack_smem_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int grid = persistent_grid(sparse_select_pack_smem_kernel, rows, warps, smem);
+  sparse_select_pack_smem_kernel<<<grid, warps * 32, smem, s>>>(
+      xf, values, words, rows, cols, k, st, topk, half_values, seed, rescale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,9 +54,9 @@ from repro_torch.kernels.ref import (
 )
 
 # The widest row a kernel takes: K1 and K3 stage a row in shared memory
-# (cols*4 B <= 32 KiB); K6 stages its keys and slots (cols*6 B <= 48 KiB) and
-# numbers lanes and slots in 16 bits, K6b and K6c their slots.  The plain
-# versions, K4a and K4b take any width.
+# (cols*4 B <= 32 KiB); K6 keeps rows of up to 1024 columns in registers and
+# stages wider ones (values, keys and 16-bit columns, cols*10 B <= 80 KiB),
+# K6b and K6c their slots.  The plain versions, K4a and K4b take any width.
 MAX_COLS = 8192
 
 SPARSE_VALUE_DTYPES = (torch.float32, torch.float16)

@@ -553,6 +553,24 @@ def lowrank_axpy_2d_ref(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *,
 
 # ------------------------------------------------------------- comparison
 
+def sparse_selection_edge_rows(x, first: int):
+    """Rows ``first`` to ``first + 4`` of a (rows, cols) fold (a tensor or a
+    numpy array) set in place to K6's selection edges: all NaN; NaNs at every
+    third column, more than k; +inf, -inf and a NaN; the k-th and (k+1)-th
+    keys of p 0.05 tied across the boundary of two lane spans (cols/16
+    columns at 128, else cols/32) and of two 8-column groups; ties longer
+    than one span.  Returns x."""
+    cols = x.shape[1]
+    span = cols // 16 if cols == 128 else cols // 32
+    x[first] = float("nan")
+    x[first + 1, ::3] = float("nan")
+    x[first + 2, 0], x[first + 2, 7], x[first + 2, 9] = float("inf"), float("-inf"), float("nan")
+    x[first + 3] = 1e-3
+    x[first + 3, span - 7:span + 5] = 0.5     # at 128, k 7: entry 7 ends lane 0, 8 starts lane 1
+    x[first + 4, :3 * span + 2] = 0.25
+    return x
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """The kernels' equality contract with their plain versions: same shape,
     dtype and bits, any NaN matching any NaN (a NaN's payload bits are not

@@ -134,6 +134,63 @@ def test_sparse_select_pack_kernel_bit_equal(cuda, mode, p, rows, cols):
         assert torch.equal(idx, i_ref) and ref.same_bits(vals, v_ref)
 
 
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("p", [0.05, 0.25, 1.0])
+@pytest.mark.parametrize("rows,cols", [(10000, 128), (1, 128), (20, 640), (11, 384),
+                                       (9, 1024), (9, 4096)])
+def test_sparse_select_pack_kernel_selection_edges(cuda, mode, p, rows, cols):
+    """K6 bit-equal to its plain version on its selection edges, across many
+    CTAs and the persistent loop (10,000 rows), on a single row, and at a
+    span that is not a power of two (640 = 32 x 20), in both value types."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(rows + cols)
+    x = torch.randn((rows, cols), generator=g, device=cuda)
+    if rows > 1:
+        x = ref.sparse_selection_edge_rows(_edge_rows(x), 4)
+    else:
+        x[0, 3:40] = 0.5                        # one row: ties across lanes
+    for value_dtype in (torch.float32, torch.float16):
+        before = q.sparse_select_pack_2d.launches
+        vals, idx = q.sparse_select_pack_2d(x, 0xBEEF, p=p, mode=mode, value_dtype=value_dtype)
+        torch.cuda.synchronize()
+        assert q.sparse_select_pack_2d.launches == before + 1
+        v_ref, i_ref = ref.sparse_select_pack_2d_ref(x, 0xBEEF, p=p, mode=mode,
+                                                     value_dtype=value_dtype)
+        assert torch.equal(idx, i_ref) and ref.same_bits(vals, v_ref)
+
+
+@pytest.mark.parametrize("mode", ["topk", "randk"])
+@pytest.mark.parametrize("k", range(1, 10))
+def test_sparse_select_pack_kernel_small_k(cuda, mode, k):
+    """K6 at the wire's block for k = 1 to 9 (p = k/128): the thread-a-row
+    path up to k = 8 and the rounds past it, on 300 rows (a partial last warp
+    of rows) with the edge rows, a fold of zeros and a constant fold (every
+    key tied)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(k)
+    x = ref.sparse_selection_edge_rows(_edge_rows(torch.randn((300, 128), generator=g,
+                                                               device=cuda)), 4)
+    for fold in (x, torch.zeros_like(x), torch.full_like(x, -0.5)):
+        got = q.sparse_select_pack_2d(fold, 0xBEEF, p=k / 128, mode=mode)
+        want = ref.sparse_select_pack_2d_ref(fold, 0xBEEF, p=k / 128, mode=mode)
+        assert got[0].shape[1] == k
+        assert torch.equal(got[1], want[1]) and ref.same_bits(got[0], want[0])
+
+
+def test_sparse_select_pack_kernel_unaligned_rows(cuda):
+    """A fold whose first element is not 16-byte aligned takes the kernel's
+    element-wise loads and still agrees bit for bit."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    flat = torch.randn(40 * 128 + 1, generator=g, device=cuda)
+    x = ref.sparse_selection_edge_rows(_edge_rows(flat[1:].view(40, 128)), 4)
+    assert x.data_ptr() % 16 != 0
+    for mode in ("topk", "randk"):
+        got = q.sparse_select_pack_2d(x, 11, p=0.05, mode=mode)
+        want = ref.sparse_select_pack_2d_ref(x, 11, p=0.05, mode=mode)
+        assert torch.equal(got[1], want[1]) and ref.same_bits(got[0], want[0])
+
+
 @pytest.mark.parametrize("cols", [128, 8192])
 @pytest.mark.parametrize("value_dtype", [torch.float32, torch.float16])
 @pytest.mark.parametrize("acc_weight,weight", [(1.0, 1.0), (1.0, -1.0), (0.5, 1.0 / 3.0)])

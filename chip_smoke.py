@@ -18,7 +18,8 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    must be bit-equal (a NaN matching any NaN).  Each is timed with CUDA
    events beside its bound (bytes moved over 3.35 TB/s, or operations over
    67 TFLOP/s, whichever is larger) and beside its plain version; K6 at
-   p 0.05 topk and p 0.25 randk, beside ``torch.topk`` (selection only).  For
+   p 0.05 topk and p 0.25 randk, beside ``torch.topk`` (selection only);
+   K4a beside ``torch.mul`` of the int8 codes and the per-row factor.  For
    ``lowrank`` (K7a, K7b) the folds are whole leaves with their lead batch
    of 8: ``lm_head`` (2048 x 49408) and ``embed`` (49408 x 2048), each with
    the cold factor shared at batch stride 0 and with warm per-slab factors,
@@ -62,13 +63,27 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    consensus distances.
 5. quickstart — the paper's Fig. 1 table (``repro_torch.examples.quickstart``)
    on the card, held to the JAX package's test thresholds.
-6. profile — device time by kernel over a further 2-step DCD ``quant:4``
+6. plans — the rest of the runtime at the train phase's width (``PLAN_RUNS``):
+   R1 naive ``quant:4`` on a chain with drops at 0.1 (K1 sends, K4b decodes
+   every neighbour densely), R2 DCD ``quant:8`` on ``full_logn`` (three
+   rounds a step) with drops, R3 DCD ``quant:4`` on ``exp`` (one round a
+   step), R4 D-PSGD on a chain with drops, R5 C-PSGD, R6 DCD on the phase
+   plan ``0@ring@quant:8;2@full_logn@quant:4``.  Launch totals asserted;
+   replicas equal ``roll(X, s)`` exactly on the rows whose edges never
+   dropped and right after the rekey; the drops and freshness replayed on the
+   host give the runtime's freshness and realized mixing rows that sum to 1;
+   C-PSGD's replicas stay identical with consensus 0.  R7: DCD ``quant:4``
+   at the reduced width, 4 steps saving every 2, then a run resumed from
+   step 2: the restored state, losses and final state bit-equal.  Before the
+   runs, K6's persistent grid is logged for every kernel instance.
+7. profile — device time by kernel over a further 2-step DCD ``quant:4``
    run, a 2-step CHOCO ``sign`` run, a 2-step CHOCO ``sparse:0.05:topk``
-   run, a 2-step DCD ``lowrank:2:warm`` run and a 2-step DCD ``quant:8`` run.
-7. reference — reduced granite runs (DCD ``quant:4``, CHOCO ``sign``, DCD
-   ``lowrank:2:warm``, and stacked DCD over 8-bit ``RandomQuantizer``) on
-   the card against the same runs on the CPU (the kernels' plain versions),
-   same params and batches.
+   run, a 2-step DCD ``lowrank:2:warm`` run, a 2-step DCD ``quant:8`` run
+   and 2 steps each of the stacked ECD 4-bit and DCD random-k 0.25 runs.
+8. reference — reduced granite runs (DCD ``quant:4``, CHOCO ``sign``, DCD
+   ``lowrank:2:warm``, DCD ``quant:8`` on ``full_logn`` with drops, and
+   stacked DCD over 8-bit ``RandomQuantizer``) on the card against the same
+   runs on the CPU (the kernels' plain versions), same params and batches.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -395,6 +410,28 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# K6's register instances (columns a lane C, rows a warp R) by the fold that
+# takes each, and the shared-memory path past 1024 columns
+K6_INSTANCES = ((128, 0.25, "C8 R2"), (256, 0.05, "C8 R1"), (384, 0.05, "C12 R1"),
+                (512, 0.05, "C16 R1"), (640, 0.1, "C20 R1"), (768, 0.05, "C24 R1"),
+                (896, 0.05, "C28 R1"), (1024, 0.05, "C32 R1"), (2048, 0.05, "shared memory"))
+
+
+def phase_kernel_grids(q) -> None:
+    """K6's persistent grid for every instance at the ``lm_head`` fold's
+    rows, looked up in order and again in reverse: each instance keeps its
+    own occupancy.  640 columns at p 0.1 and 1024 at p 0.05 take the same
+    shared memory a CTA, so a cache keyed by shared memory alone would give
+    the second the first's grid."""
+    rows = 802816
+    first = [q.sparse_select_pack_2d_grid(rows, c, p) for c, p, _ in K6_INSTANCES]
+    again = [q.sparse_select_pack_2d_grid(rows, c, p) for c, p, _ in K6_INSTANCES[::-1]][::-1]
+    for (c, p, name), g in zip(K6_INSTANCES, first):
+        log(f"grid sparse_select_pack_2d {rows}x{c} p={p} ({name}): {g} CTAs")
+    log(f"grid sparse_select_pack_2d: reverse order gives {again}")
+    assert first == again, (first, again)
+
+
 def phase_kernels_decode(torch, q, ref, rec: dict) -> None:
     """K3 (8 bits) with K4a, and K4b (4 bits), vs plain version at the
     ``quant`` folds, edge rows included; K4a and K4b at block 32; K3 on a NaN
@@ -443,10 +480,14 @@ def phase_kernels_decode(torch, q, ref, rec: dict) -> None:
                 ms=time_ms(torch, lambda: q.quantize_2d(x, seed, bits=8), 10),
                 plain_ms=time_ms(torch, lambda: ref.quantize_2d_ref(x, seed, bits=8), 2, 1),
                 bound=bound(n * 4 + n + rows * 4, 8 * n))
+            # K4a's body as one PyTorch call: int8 codes times the per-row
+            # float32 factor, which type promotion turns into float32
+            factor = scale * ref.inv_levels(8)
             rec["dequantize_2d"].update(
                 ms=time_ms(torch, lambda: q.dequantize_2d(codes, scale, bits=8), 10),
                 plain_ms=time_ms(torch, lambda: ref.dequantize_2d_ref(codes, scale, bits=8),
                                  2, 1),
+                library_ms=time_ms(torch, lambda: torch.mul(codes, factor), 10),
                 bound=bound(n + rows * 4 + n * 4, n + rows))
             rec["unpack_dequant_2d"].update(
                 ms=time_ms(torch, lambda: q.unpack_dequant_2d(words, s4, bits=4), 10),
@@ -704,6 +745,247 @@ def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> d
     return counts
 
 
+def drop_history(tc, steps: int, start: int = 0):
+    """Replays the runtime's drop masks and freshness on the host: for every
+    union shift, the nodes whose edge never dropped in steps [start, steps),
+    and every round's realized mixing matrix (row sums checked) and final
+    freshness vectors.  Without drops every node counts as delivered."""
+    import torch
+
+    from repro_torch.distributed.decentralized import REPLICA_ALGOS
+    from repro_torch.distributed.failures import edge_drop_mask, make_drop_spec, update_freshness
+    from repro_torch.distributed.gossip import (as_schedule, make_gossip_plan,
+                                                realized_mixing_matrix)
+
+    sched = as_schedule(make_gossip_plan(tc.topology, tc.n_nodes))
+    drop = make_drop_spec(tc.drop_rate, salt=tc.drop_salt)
+    n = sched.n
+    never = {s: torch.ones(n) for s in sched.shift_union}
+    fresh = {s: torch.ones(n) for s in sched.shift_union}
+    worst_row_sum, dropped_edges = 0.0, 0
+    if drop is None:
+        return never, fresh, worst_row_sum, dropped_edges
+    tv = sched.time_varying and sched.period > 1
+    for t in range(start, steps):
+        todo = [(sched.rounds[t % sched.period], t)] if tv else \
+            [(rnd, t * sched.period + r) for r, rnd in enumerate(sched.rounds)]
+        for rnd, enc in todo:
+            shifts = sched.shift_union if tc.algo in REPLICA_ALGOS else rnd.shift_list
+            masks = {s: edge_drop_mask(n, s, enc, drop) for s in shifts}
+            if tc.algo in REPLICA_ALGOS:
+                for s in shifts:
+                    fresh[s] = update_freshness(fresh[s], masks[s], drop.decay)
+                gates = {s: masks[s] * fresh[s] for s in rnd.shift_list}
+            else:
+                gates = {s: masks[s] for s in rnd.shift_list}
+            for s in shifts:
+                never[s] = never[s] * masks[s]
+            dropped_edges += int(sum((1 - m).sum().item() for m in masks.values()))
+            W = realized_mixing_matrix(rnd, gates).double()
+            worst_row_sum = max(worst_row_sum, (W.sum(dim=1) - 1).abs().max().item())
+    return never, fresh, worst_row_sum, dropped_edges
+
+
+def replica_residuals(torch, state, algo: str, never: dict):
+    """max |rep{s} - roll(X, s)| over the rows whose edges never dropped
+    (must be 0), and over the frozen rows (stale, reported)."""
+    from repro_torch.distributed.decentralized import REPLICA_ALGOS
+    from repro_torch.tree import tree_leaves
+
+    if algo not in REPLICA_ALGOS:
+        return None, None
+    base_key, prefix = INVARIANTS[algo]
+    base = state.params if base_key is None else state.aux[base_key]
+    kept, stale = 0.0, 0.0
+    for s, ok in never.items():
+        rows = ok.bool().to(tree_leaves(base)[0].device)
+        for b, o in zip(tree_leaves(base), tree_leaves(state.aux[f"{prefix}{s:+d}"])):
+            d = (torch.roll(b, s, dims=0) - o).abs().flatten(1).amax(dim=1)
+            kept = max(kept, d[rows].max().item() if rows.any() else 0.0)
+            stale = max(stale, d[~rows].max().item() if (~rows).any() else 0.0)
+    return kept, stale
+
+
+def rekey_watch(torch, train_mod, algo: str):
+    """Wrap launch/train.py's rekey so that the shift invariant is measured
+    on the state it returns; returns (residuals, undo)."""
+    from repro_torch.distributed.decentralized import REPLICA_ALGOS
+    from repro_torch.tree import tree_leaves
+
+    real = train_mod.rekey_dist_state
+    seen = []
+
+    def watched(state, algo_, plan, **kw):
+        out = real(state, algo_, plan, **kw)
+        if algo in REPLICA_ALGOS:
+            base_key, prefix = INVARIANTS[algo]
+            base = out.params if base_key is None else out.aux[base_key]
+            seen.append(max_shift_residual(torch, tree_leaves, base, {
+                int(k[len(prefix):]): v for k, v in out.aux.items()
+                if k.startswith(prefix) and k[len(prefix):][:1] in "+-"}))
+        return out
+    train_mod.rekey_dist_state = watched
+    return seen, lambda: setattr(train_mod, "rekey_dist_state", real)
+
+
+# The full-width runs of the whole runtime: (label, TrainConfig fields,
+# steps, {kernel: launches over the run}); the other kernels launch none.
+# 12 leaves; full_logn and exp at n 8 have the shift union {1, 2, 4}.
+PLAN_RUNS = (
+    ("R1", dict(algo="naive", wire="quant:4", topology="chain", drop_rate=0.1), 2,
+     {"quantize_pack_2d": 24, "unpack_dequant_2d": 72}),
+    ("R2", dict(algo="dcd", wire="quant:8", topology="full_logn", drop_rate=0.1), 2,
+     {"quantize_2d": 72, "dequantize_2d": 288}),
+    ("R3", dict(algo="dcd", wire="quant:4", topology="exp"), 3,
+     {"quantize_pack_2d": 36, "unpack_dequant_axpy_2d": 144}),
+    ("R4", dict(algo="dpsgd", topology="chain", drop_rate=0.1), 2, {}),
+    ("R5", dict(algo="cpsgd", topology="ring"), 2, {}),
+    ("R6", dict(algo="dcd", phase_plan="0@ring@quant:8;2@full_logn@quant:4"), 4,
+     {"quantize_2d": 24, "dequantize_2d": 72, "quantize_pack_2d": 72,
+      "unpack_dequant_axpy_2d": 288}),
+)
+
+
+def phase_plan_run(torch, q, label: str, fields: dict, steps: int, launches: dict) -> dict:
+    """One run of ``PLAN_RUNS`` on granite-3-2b at full width, depth 1, 8
+    nodes, through ``run_training``: launch counts, peak memory, step times,
+    and what the run exercises — replicas exact on the rows whose edges never
+    dropped, realized mixing rows summing to 1, the freshness replayed on
+    the host equal to the runtime's, identical replicas under cpsgd, the
+    shift invariant right after a phase boundary's rekey."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.failures import fresh_key, make_drop_spec
+    from repro_torch.distributed.gossip import as_schedule, make_gossip_plan
+    from repro_torch.distributed.wire import make_wire_format
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import GOSSIP_ALGOS, TrainConfig
+    from repro_torch.netsim.controller import PhasePlan
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
+    tc = TrainConfig(arch="granite-3-2b", gamma=0.5, n_nodes=8, steps=steps, log_every=1,
+                     reduced=False, **fields)
+    tag = f"{label} " + " ".join(f"{k}={v}" for k, v in fields.items())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rekeys, undo = rekey_watch(torch, train_mod, tc.algo)
+    q.reset_launch_counts()
+    try:
+        hist = train_mod.run_training(cfg, tc, device="cuda")
+    finally:
+        undo()
+    counts = q.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = hist["state"]
+    log(f"plan {tag}: losses={hist['losses']} consensus={hist['consensus']}")
+    log(f"plan {tag}: step_s={[round(x, 4) for x in hist['step_s']]} "
+        f"peak_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    log(f"plan {tag}: launches {counts}")
+    pplan = PhasePlan.parse(tc.phase_plan) if tc.phase_plan else None
+    phases = [(a, b, ph.topology, ph.wire) for a, b, ph in pplan.segments(steps)] \
+        if pplan else [(0, steps, tc.topology, tc.wire)]
+    for a, b, topo, wire in phases:
+        sched = as_schedule(make_gossip_plan(topo, tc.n_nodes))
+        rounds = 1 if sched.time_varying else sched.period
+        rolls = sched.replica_payloads if tc.algo in ("dcd", "ecd", "choco") else sched.degree
+        if tc.algo in GOSSIP_ALGOS:
+            enc = make_wire_format(wire).wire_nbytes(state.params)
+            log(f"plan {tag}: steps {a}-{b - 1} ({topo}, {wire}): {enc * rounds} B encoded a "
+                f"step ({rounds} payload(s) of {enc} B for the {tc.n_nodes} nodes), "
+                f"{rolls} payload rolls a step")
+        else:
+            dense = sum(l.numel() * l.element_size() for l in tree_leaves(state.params))
+            log(f"plan {tag}: steps {a}-{b - 1} ({topo}): full precision, "
+                f"{dense if tc.algo == 'dpsgd' else 0} B of params a roll, "
+                f"{rolls if tc.algo == 'dpsgd' else 0} rolls a step")
+    assert all(math.isfinite(v) for v in hist["losses"] + hist["consensus"]), hist
+    want = {name: launches.get(name, 0) for name in counts}
+    assert counts == want, (counts, want)
+    last = dataclasses.replace(tc, topology=phases[-1][2])
+    never, fresh, row_sum, n_dropped = drop_history(last, steps, start=phases[-1][0])
+    kept, stale = replica_residuals(torch, state, tc.algo, never)
+    if tc.drop_rate:
+        log(f"plan {tag}: {n_dropped} directed edges dropped over the run; realized mixing "
+            f"rows sum to 1 within {row_sum:.3e}")
+        assert row_sum <= 1e-6, row_sum
+        drop = make_drop_spec(tc.drop_rate, salt=tc.drop_salt)
+        if tc.algo in INVARIANTS:
+            for s, f in fresh.items():
+                assert torch.equal(state.aux[fresh_key(s, drop.salt)], f), s
+    if kept is not None:
+        log(f"plan {tag}: replicas vs roll(X, s): max_abs_diff {kept} on the rows whose edges "
+            f"never dropped, {stale} on the frozen rows")
+        assert kept <= INVARIANT_LIMIT, kept
+    if rekeys:
+        log(f"plan {tag}: right after each rekey, max |rep{{s}} - roll(X, s)| = {rekeys}")
+        assert len(rekeys) == len(phases) - 1 and max(rekeys) <= INVARIANT_LIMIT, rekeys
+    if tc.algo == "cpsgd":
+        same = all(bool((l == l[:1]).all()) for l in tree_leaves(state.params))
+        log(f"plan {tag}: replicas identical {same}, consensus {hist['consensus']}")
+        assert same and all(c == 0.0 for c in hist["consensus"]), hist["consensus"]
+    del hist, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_checkpoint(torch, q) -> dict:
+    """R7: DCD ``quant:4`` on the ring at a small width (granite-3-2b
+    reduced: d 256, 2 layers), 8 nodes.  A 4-step run saves every 2 steps;
+    a fresh run resumed from the step-2 checkpoint must restore the saved
+    state bit for bit and reproduce the run-through's losses and final
+    state."""
+    import shutil
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.checkpoint.checkpoint import _items
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import TrainConfig
+    from repro_torch.tree import leaf_items
+
+    cfg = get_config("granite-3-2b").reduced()
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    tc = TrainConfig(arch="granite-3-2b", algo="dcd", wire="quant:4", topology="ring",
+                     n_nodes=8, seq_len=64, global_batch=16, steps=4, log_every=1,
+                     ckpt_dir=str(root / "through"), ckpt_every=2)
+    real_save, saved = train_mod.save, {}
+
+    def keep_copy(ckpt_dir, step, tree, **kw):
+        saved[step] = [(k, v.clone() if isinstance(v, torch.Tensor) else v)
+                       for k, v in _items(tree)]
+        return real_save(ckpt_dir, step, tree, **kw)
+    train_mod.save = keep_copy
+    q.reset_launch_counts()
+    try:
+        through = train_mod.run_training(cfg, tc, device="cuda")
+        (root / "resumed").mkdir(parents=True)
+        for suffix in (".npz", ".npz.json"):
+            shutil.copy(root / "through" / f"ckpt_{2:08d}{suffix}", root / "resumed")
+        resumed = train_mod.run_training(cfg, dataclasses.replace(
+            tc, ckpt_dir=str(root / "resumed")), device="cuda")
+    finally:
+        train_mod.save = real_save
+    counts = q.launch_counts()
+    restored, _ = restore(str(root / "through"), through["state"], 2)
+    same_restore = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                       for (_, a), (_, b) in zip(saved[2], _items(restored)))
+    end_a, end_b = _items(through["state"]), _items(resumed["state"])
+    diff = max((a.float() - b.float()).abs().max().item() if isinstance(a, torch.Tensor)
+               else float(a != b) for (_, a), (_, b) in zip(end_a, end_b))
+    loss_diff = max(abs(a - b) for a, b in zip(through["losses"][2:], resumed["losses"]))
+    n_leaves = len(leaf_items(through["state"].params))
+    log(f"checkpoint R7: reduced granite dcd quant:4 ring, 8 nodes: run-through losses "
+        f"{through['losses']}, resumed from step 2 {resumed['losses']}; restored state "
+        f"bit-equal to the saved one {same_restore}; final state max_abs_diff {diff}, "
+        f"loss max diff {loss_diff}; launches {counts}")
+    assert same_restore and diff == 0.0 and loss_diff == 0.0, (same_restore, diff, loss_diff)
+    assert counts["quantize_pack_2d"] == 6 * n_leaves, counts
+    assert counts["unpack_dequant_axpy_2d"] == 18 * n_leaves, counts
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def _stacked_setup(cfg, n_nodes: int, seq_len: int, global_batch: int):
     from repro_torch.data import DataConfig
     from repro_torch.models.api import build_model
@@ -819,7 +1101,6 @@ def phase_profile(torch, algo: str, wire: str, steps: int = 2) -> None:
     steady steps (batch generation included, as in ``run_training``) of the
     train configuration, after one unprofiled warm-up step and outside the
     counted runs."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -846,6 +1127,13 @@ def phase_profile(torch, algo: str, wire: str, steps: int = 2) -> None:
     wall = time.perf_counter() - t0
     del state
     torch.cuda.empty_cache()
+    report_profile(prof, f"{algo} {wire}", steps, wall)
+
+
+def report_profile(prof, tag: str, steps: int, wall: float) -> None:
+    """Log a profile's device busy time and idle share, its top kernels, and
+    each of the port's kernels a step."""
+    from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
@@ -853,23 +1141,53 @@ def phase_profile(torch, algo: str, wire: str, steps: int = 2) -> None:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in kernels) / 1e6
-    log(f"profile {algo} {wire} ({steps} steady steps): wall {wall:.3f} s, device busy "
+    log(f"profile {tag} ({steps} steady steps): wall {wall:.3f} s, device busy "
         f"{busy:.3f} s, idle share {1 - busy / wall:.3f}")
     ranked = sorted(kernels, key=dev_us, reverse=True)
     ours = [e for e in ranked if any(sym in e.key for sym in KERNEL_SYMBOLS)]
     for e in ranked[:12] + [e for e in ours if e not in ranked[:12]]:
         log(f"profile   {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} launches  {e.key[:100]}")
     for e in ours:
-        log(f"profile {algo} {wire}: {e.key[:40]} {dev_us(e) / 1e3 / steps:.3f} ms a step "
+        log(f"profile {tag}: {e.key[:40]} {dev_us(e) / 1e3 / steps:.3f} ms a step "
             f"({e.count / steps:g} launches a step), of {busy / steps * 1e3:.1f} ms busy a step")
 
 
-def phase_reference(torch, algo: str, wire: str) -> None:
-    """Reduced granite, 4 nodes, 2 steps: the card (kernels) against the CPU
-    (plain versions) from the same params and batches."""
+def phase_profile_stacked(torch, algo: str, comp, steps: int = 2) -> None:
+    """Device time by kernel of the stacked reference at full width (as
+    ``phase_stacked``), over ``steps`` steps after one unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_algorithm
+    from repro_torch.data import stacked_node_batches
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
+    model, dc = _stacked_setup(cfg, 8, 256, 32)
+    alg = make_algorithm(algo, 8, "ring", comp)
+    state = alg.init(model.init(0, device="cuda"))
+    step = alg.step_fn()
+    stacked_step(model, step, state, stacked_node_batches(dc, 0, device="cuda"), 0, 3e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(1, 1 + steps):
+            stacked_step(model, step, state, stacked_node_batches(dc, t, device="cuda"), t, 3e-3)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    report_profile(prof, f"stacked {algo} {comp}", steps, wall)
+
+
+def phase_reference(torch, algo: str, wire: str, topology: str = "ring", drop=None,
+                    n_nodes: int = 4) -> None:
+    """Reduced granite, 2 steps: the card (kernels) against the CPU (plain
+    versions) from the same params and batches, on ``topology`` with the
+    edge drops ``drop``."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, stacked_node_batches
     from repro_torch.distributed.decentralized import init_dist_state, make_dist_train_step
+    from repro_torch.distributed.gossip import make_gossip_plan
     from repro_torch.models.api import build_model
     from repro_torch.optim import sgd
     from repro_torch.optim.schedules import constant
@@ -878,14 +1196,17 @@ def phase_reference(torch, algo: str, wire: str) -> None:
     cfg = get_config("granite-3-2b").reduced()
     model = build_model(cfg)
     params_cpu = model.init(0, device="cpu")
-    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8, n_shards=4, seed=0)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2 * n_nodes, n_shards=n_nodes,
+                    seed=0)
     batches = [stacked_node_batches(dc, t, device="cpu") for t in range(2)]
+    plan = make_gossip_plan(topology, n_nodes)
     out, lr = {}, 0.05
     for dev in ("cpu", "cuda"):
         opt = sgd()
-        step = make_dist_train_step(model.loss, algo, opt, wire, 4, constant(lr), gamma=0.5)
-        state = init_dist_state(algo, tree_map(lambda p: p.to(dev), params_cpu), 4, opt,
-                                wire=wire)
+        step = make_dist_train_step(model.loss, algo, opt, wire, plan, constant(lr), gamma=0.5,
+                                    drop=drop)
+        state = init_dist_state(algo, tree_map(lambda p: p.to(dev), params_cpu), plan, opt,
+                                drop=drop, wire=wire)
         losses = []
         for b in batches:
             state, met = step(state, {k: v.to(dev) for k, v in b.items()})
@@ -896,7 +1217,8 @@ def phase_reference(torch, algo: str, wire: str) -> None:
     d_gpu = torch.cat([(a - p).flatten() for a, p in zip(out["cuda"][1], x0)])
     dl = max(abs(a - b) for a, b in zip(out["cpu"][0], out["cuda"][0]))
     rel = ((d_gpu - d_cpu).norm() / d_cpu.norm()).item()
-    log(f"reference: reduced granite {algo} {wire} sgd, cuda vs cpu: losses {out['cuda'][0]} "
+    log(f"reference: reduced granite {algo} {wire} {topology} drop={drop} {n_nodes} nodes sgd, "
+        f"cuda vs cpu: losses {out['cuda'][0]} "
         f"vs {out['cpu'][0]}, max loss diff {dl:.3e}, relative L2 error of the param change "
         f"{rel:.3e}")
     # bf16 matmuls round differently on the two devices, so losses agree to
@@ -963,6 +1285,7 @@ def main() -> int:
     phase_kernels(torch, q, ref, rec)
     phase_kernels_sign(torch, q, ref, rec)
     phase_kernels_sparse(torch, q, ref, rec)
+    phase_kernel_grids(q)
     phase_kernels_decode(torch, q, ref, rec)
     phase_kernels_sparse_decode(torch, q, ref, rec)
     phase_kernels_lowrank(torch, lk, ref, rec)
@@ -972,6 +1295,9 @@ def main() -> int:
     runs += [phase_stacked(torch, q, algo, comp, per_step)
              for algo, comp, per_step in stacked_runs()]
     runs.append(phase_quickstart(torch, q))
+    runs += [phase_plan_run(torch, q, label, fields, steps, launches)
+             for label, fields, steps, launches in PLAN_RUNS]
+    runs.append(phase_checkpoint(torch, q))
     for counts in runs:
         for name, c in counts.items():
             totals[name] += c
@@ -980,9 +1306,13 @@ def main() -> int:
     phase_profile(torch, "choco", "sparse:0.05:topk")
     phase_profile(torch, "dcd", "lowrank:2:warm")
     phase_profile(torch, "dcd", "quant:8")
+    _, ecd4, dcd_randk = stacked_runs()
+    phase_profile_stacked(torch, "ecd", ecd4[1])
+    phase_profile_stacked(torch, "dcd", dcd_randk[1])
     phase_reference(torch, "dcd", "quant:4")
     phase_reference(torch, "choco", "sign")
     phase_reference(torch, "dcd", "lowrank:2:warm")
+    phase_reference(torch, "dcd", "quant:8", topology="full_logn", drop=0.1, n_nodes=8)
     phase_reference_stacked(torch)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": totals[name], "max_abs_err": rec[name]["err"],

@@ -5,8 +5,8 @@ as numpy arrays (the caller converts them; this module imports no JAX) and
 returns the port's nested dict of float32 tensors with the same keys.
 ``leaf_paths`` gives the port's leaf order, which is JAX's flatten order —
 the order the wire seeds leaves by.  ``algo_state_from_jax`` carries a
-stacked-reference ``AlgoState`` the same way, so that both packages step
-from the same state.
+stacked-reference ``AlgoState`` the same way, and ``dist_state_from_jax``
+the runtime's ``DistState``, so that both packages step from the same state.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.algorithms import AlgoState
+from repro_torch.distributed.decentralized import DistState
+from repro_torch.optim.optimizers import OptState
 from repro_torch.tree import leaf_items, tree_map
 
 
@@ -32,6 +34,32 @@ def algo_state_from_jax(state: Any, device="cuda") -> AlgoState:
     aux = None if state.aux is None else params_from_jax(state.aux, device)
     return AlgoState(params=params_from_jax(state.params, device),
                      step=int(np.asarray(state.step)), aux=aux)
+
+
+def _tensor(a: Any, device) -> torch.Tensor:
+    """A numpy leaf as its own tensor of the same dtype; ``bfloat16`` (an
+    ``ml_dtypes`` array) through its raw bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def dist_state_from_jax(state: Any, device="cuda") -> DistState:
+    """The JAX runtime's ``DistState`` with its leaves as numpy arrays
+    (params, the optimizer's ``OptState``, the aux trees with freshness
+    vectors and codec state, the step) -> the port's ``DistState``.  Every
+    leaf keeps its dtype and becomes its own tensor on ``device``, but the
+    freshness vectors, which the port keeps on the host."""
+    def tree(t):
+        return None if t is None else tree_map(lambda a: _tensor(a, device), t)
+
+    aux = {k: (_tensor(v, "cpu") if k.startswith("fresh") else tree(v))
+           for k, v in state.aux.items()}
+    opt = OptState(step=int(np.asarray(state.opt.step)), m=tree(state.opt.m),
+                   v=tree(state.opt.v))
+    return DistState(params=tree(state.params), opt=opt, aux=aux,
+                     step=int(np.asarray(state.step)))
 
 
 def leaf_paths(params: Any) -> List[str]:

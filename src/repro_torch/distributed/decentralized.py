@@ -1,63 +1,99 @@
-"""Decentralized training step over a stacked node axis: DCD-PSGD, ECD-PSGD,
-CHOCO-SGD and DeepSqueeze.
+"""Decentralized training step over a stacked node axis: the AllReduce and
+D-PSGD baselines, naive compression, DCD-PSGD, ECD-PSGD, CHOCO-SGD and
+DeepSqueeze, on every gossip plan and schedule, with or without edge drops.
 
-The port of the JAX package's ``distributed/decentralized.py`` for the
-paper's two algorithms and the two error-feedback algorithms on flat plans
-without drops.  State is stacked: every leaf has a leading node axis of
-length ``plan.n`` on one device, and a plan shift ``s`` is
-``torch.roll(payload, s, dims=0)`` of the ENCODED payload — the packed
-words and scales, as the JAX runtime's collective-permute moves them.
+The port of the JAX package's ``distributed/decentralized.py``.  State is
+stacked: every leaf has a leading node axis of length ``n`` on one device,
+and a plan shift ``s`` is ``torch.roll(payload, s, dims=0)`` of the ENCODED
+payload — the packed words and scales, as the JAX runtime's
+collective-permute moves them.
 
-* DCD (``_dcd_round``, ``decentralized.py:434``): one replica tree per shift
-  (``rep{s:+d}``), advanced by the received compressed deltas; the invariant
+* cpsgd: identical replicas apply the node-mean update (no gossip).
+* dpsgd: ``X <- X W - lr*G``, full-precision gossip of X itself.
+* naive (salt 1): every node's model is encoded and the decoded models are
+  mixed, ``X <- dec(X) W - lr*G``; K4b or K4a decodes the quant wire.
+* DCD (JAX ``_dcd_round``, salt 2): one replica tree per union shift
+  (``rep{s:+d}``), advanced by the received compressed deltas;
   ``rep{s} == roll(X, s)`` holds exactly here, because X and every replica
   are advanced by the same kernel on the same words.
-* ECD (``_ecd_round``, ``decentralized.py:463``): ``tilde_self`` plus one
-  estimate per shift with Algorithm 2's ``(1 - 2/s_t, 2/s_t)`` update; the
-  scalars are float32 values, as in JAX.
-* CHOCO (``_choco_round``, ``decentralized.py:496``): ``hat_self`` plus one
-  estimate per shift, advanced by the received compressed differences
-  ``Z = X_half - hat_self``; mixing runs on the estimates with consensus
-  stepsize ``gamma``.  ``hat{s} == roll(hat_self, s)`` holds exactly here.
-* DeepSqueeze (``_deepsqueeze_round``, ``decentralized.py:532``): ``err_self``
-  only.  The error-compensated model value ``V = X_half + err`` is encoded,
-  the residual ``V - dec(V)`` is kept, and the decoded payloads are mixed:
-  ``X = X_half + (mix(D) - D_self)``.  The receive side is stateless.
+* ECD (JAX ``_ecd_round``, salt 3): ``tilde_self`` plus one estimate per shift
+  with Algorithm 2's ``(1 - 2/s_t, 2/s_t)`` update, ``s_t`` the effective
+  counter plus one, as float32 values.
+* CHOCO (salt 4): ``hat_self`` plus one estimate per shift, advanced by the
+  compressed differences ``Z = X_half - hat_self``; mixing runs on the
+  estimates with consensus stepsize ``gamma``.
+* DeepSqueeze (salt 5): ``err_self`` only; ``V = X_half + err`` is encoded,
+  the residual ``V - dec(V)`` kept, and ``X = X_half + (mix(D) - D_self)``.
 
-Unlike the JAX step, which is pure and maps whole trees, a round here walks
-the leaves in JAX flatten order and finishes each leaf — mix, optimizer
-update, encode (a send kernel: K1, K5a, K6 or K7a), decode into params and
-replicas (a receive kernel: K2, K5b, K6c or K7b) — before it starts the
-next, updating params, replicas, estimates and the optimizer moments IN
-PLACE.  At full width a whole-tree temporary is gigabytes; a leaf-at-a-time
-round holds a few leaf-sized ones.
+Schedules (:class:`~repro_torch.distributed.gossip.GossipSchedule`): a
+multi-round schedule runs every round inside one step, round ``r`` of step
+``t`` encoding (and drawing its drop masks) with the effective counter
+``t * period + r``; a time-varying one (``exp``) runs the one round ``t %
+period`` with counter ``t``.  The gradient update rides round 0 for the
+replica-tracking algorithms and DeepSqueeze; dpsgd and naive add it after
+the last round.  Every union replica or estimate advances on every round;
+the mix uses that round's shifts only.
+
+Drops (``drop=``, :mod:`repro_torch.distributed.failures`): each round draws
+the delivery masks of its shifts (of every union shift for DCD, ECD and
+CHOCO, which also advance their freshness vectors ``fresh{s:+d}@drop{salt}``
+and gate with ``mask * fresh``), mixes with
+:func:`~repro_torch.distributed.gossip.gated_weights`, and freezes each
+replica, estimate or hat on its dropped edges: the dropped nodes' rows are
+saved before the in-place decode and put back after it, bit-equal to the
+JAX package's ``select_delivered``.  The masks and freshness vectors are
+(n,) float32 vectors on the host.  cpsgd refuses drops.
+
+Unlike the JAX step, which is pure and maps whole trees, a step here walks
+the leaves in JAX flatten order with the rounds inside, and finishes each
+leaf — mix, optimizer update, encode (a send kernel: K1, K3, K5a, K6 or K7a),
+decode into params and replicas (a receive kernel: K2, K4a, K4b, K5b, K6c or
+K7b) — before it starts the next, updating params, replicas, estimates and
+the optimizer moments IN PLACE.  At full width a whole-tree temporary is
+gigabytes; a leaf-at-a-time step holds a few leaf-sized ones.  The rounds of
+one leaf depend on that leaf only; what they share across leaves (masks,
+freshness, gated weights) is computed for every round before the leaf loop.
 
 Each leaf is encoded and decoded through ``wire.route(path, shape)``, its
-sub-format under ``adaptive`` and the wire itself otherwise.  A stateful
-wire (``lowrank:<r>:warm``) keeps its codec state in ``aux[wire.aux_name]``
-(``init_dist_state(..., wire=)``), and the round encodes leaf ``li`` with
-``wire.encode_leaf_stateful``, which advances that leaf's warm factor in
-place — the same factor, round by round, as the JAX ``encode_tree``
-(``decentralized.py:365``).
+sub-format under ``adaptive``.  A stateful wire (``lowrank:<r>:warm``) keeps
+its codec state in ``aux[wire.aux_name]`` (``init_dist_state(...,
+wire=)``), advanced in place by ``wire.encode_leaf_stateful``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.distributed.gossip import GossipPlan, make_gossip_plan, mix_leaf
+from repro_torch.distributed.failures import (
+    edge_drop_mask,
+    fresh_key,
+    make_drop_spec,
+    update_freshness,
+)
+from repro_torch.distributed.gossip import (
+    GossipPlan,
+    GossipSchedule,
+    as_schedule,
+    gated_weights,
+    mix_leaf,
+    weight_for,
+)
 from repro_torch.distributed.wire import Payload, WireFormat, leaf_seed, make_wire_format
 from repro_torch.optim.optimizers import OptState, Optimizer
 from repro_torch.tree import leaf_items, tree_leaves, tree_map
 
-ALGOS = ("dcd", "ecd", "choco", "deepsqueeze")
+ALGOS = ("cpsgd", "dpsgd", "naive", "dcd", "ecd", "choco", "deepsqueeze")
+# the algorithms that encode through a wire format
+WIRE_ALGOS = ("naive", "dcd", "ecd", "choco", "deepsqueeze")
+# the algorithms that keep replicas or estimates of their neighbours
+REPLICA_ALGOS = ("dcd", "ecd", "choco")
 
-# per-algorithm wire salts of the JAX runtime (decentralized.py:450, :480,
-# :507, :549)
-_SALT = {"dcd": 2, "ecd": 3, "choco": 4, "deepsqueeze": 5}
+# per-algorithm wire salts of the JAX runtime (decentralized.py:421, :450,
+# :480, :509, :547)
+_SALT = {"naive": 1, "dcd": 2, "ecd": 3, "choco": 4, "deepsqueeze": 5}
 
 
 @dataclasses.dataclass
@@ -68,43 +104,78 @@ class DistState:
     step: int
 
 
-def _resolve_plan(plan) -> GossipPlan:
-    return plan if isinstance(plan, GossipPlan) else GossipPlan.ring(int(plan))
+def _resolve_plan(plan) -> GossipSchedule:
+    """A plan or schedule, or an int node count (ring), as a schedule."""
+    if not isinstance(plan, (GossipPlan, GossipSchedule)):
+        plan = GossipPlan.ring(int(plan))
+    return as_schedule(plan)
 
 
-def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
-                    wire=None) -> DistState:
-    """Stack ``params_single`` over the plan's nodes; one replica (DCD) or
-    estimate (ECD, CHOCO) tree per shift, each its own copy of the stacked
-    params, or DeepSqueeze's zero residual.  ``wire`` (a
-    :class:`WireFormat` or spec) is needed when it is stateful
-    (``lowrank:<r>:warm``): its initial codec state goes under
-    ``aux[wire.aux_name]``.  Stateless wires add nothing."""
+def _check_algo(algo: str) -> None:
     if algo not in ALGOS:
-        raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
-    plan = _resolve_plan(plan)
-    n = plan.n
-    X = tree_map(lambda p: p.detach().unsqueeze(0).repeat((n,) + (1,) * p.dim()),
-                 params_single)
+        raise ValueError(f"algorithms are {ALGOS}, got {algo!r}")
 
-    def copy():
-        return tree_map(torch.clone, X)
 
-    if algo == "dcd":
-        aux = {f"rep{s:+d}": copy() for s in plan.shift_union}
-    elif algo == "ecd":
-        aux = {"tilde_self": copy()}
-        aux.update({f"tilde{s:+d}": copy() for s in plan.shift_union})
-    elif algo == "choco":
-        aux = {"hat_self": copy()}
-        aux.update({f"hat{s:+d}": copy() for s in plan.shift_union})
-    else:
-        aux = {"err_self": tree_map(torch.zeros_like, X)}
+def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, resync: bool) -> dict:
+    """The aux trees of ``algo`` over the stacked params ``X``: every
+    replica or estimate an exact copy of its neighbour's params (``roll(X,
+    s)`` when ``resync``, X itself at init, where every node holds the same
+    params), DeepSqueeze's zero residual, fresh freshness vectors and the
+    wire's initial codec state."""
+    def copy(s: int):
+        return tree_map(lambda l: torch.roll(l, s, dims=0) if resync and s else l.clone(), X)
+
+    aux: Dict[str, Any] = {}
+    prefix = {"dcd": "rep", "ecd": "tilde", "choco": "hat"}.get(algo)
+    if algo in ("ecd", "choco"):
+        aux[f"{prefix}_self"] = copy(0)
+    if prefix is not None:
+        for s in sched.shift_union:
+            aux[f"{prefix}{s:+d}"] = copy(s)
+    if algo == "deepsqueeze":
+        aux["err_self"] = tree_map(torch.zeros_like, X)
+    if drop is not None and algo in REPLICA_ALGOS:
+        for s in sched.shift_union:
+            aux[fresh_key(s, drop.salt)] = torch.ones((sched.n,), dtype=torch.float32)
     if wire is not None:
         wire = make_wire_format(wire)
         if wire.stateful:
             aux[wire.aux_name] = wire.init_aux(X)
+    return aux
+
+
+def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
+                    drop=None, wire=None) -> DistState:
+    """Stack ``params_single`` over the plan's nodes; one replica (DCD) or
+    estimate (ECD, CHOCO) tree per shift of the schedule's union, each its
+    own copy of the stacked params, or DeepSqueeze's zero residual; the
+    baselines keep none.  ``drop`` (a :class:`DropSpec`, rate or
+    ``"rate[:salt[:decay]]"``) adds the freshness vector of every union
+    shift for DCD, ECD and CHOCO, keyed ``fresh{s:+d}@drop{salt}``.
+    ``wire`` (a :class:`WireFormat` or spec) is needed when it is stateful
+    (``lowrank:<r>:warm``): its codec state goes under ``aux[wire.aux_name]``."""
+    _check_algo(algo)
+    sched = _resolve_plan(plan)
+    n = sched.n
+    X = tree_map(lambda p: p.detach().unsqueeze(0).repeat((n,) + (1,) * p.dim()),
+                 params_single)
+    aux = _gossip_aux(algo, X, sched, make_drop_spec(drop), wire, resync=False)
     return DistState(params=X, opt=opt.init(X), aux=aux, step=0)
+
+
+def rekey_dist_state(state: DistState, algo: str, plan, drop=None, wire=None) -> DistState:
+    """Re-key the aux trees for a new ``{plan, wire}`` at a phase boundary,
+    keeping params, optimizer moments and the step counter: every replica or
+    estimate becomes ``roll(X, s)`` (the exact current neighbour params),
+    DeepSqueeze's residual zero, the codec state ``wire.init_aux`` and every
+    freshness vector ones.  The old aux is released before the new one is
+    built, so the peak holds one set of aux trees.  Updates ``state`` in
+    place and returns it."""
+    _check_algo(algo)
+    sched = _resolve_plan(plan)
+    state.aux = {}
+    state.aux = _gossip_aux(algo, state.params, sched, make_drop_spec(drop), wire, resync=True)
+    return state
 
 
 def _moment_leaves(opt: OptState, n_leaves: int):
@@ -115,6 +186,27 @@ def _moment_leaves(opt: OptState, n_leaves: int):
 
 def _roll_payload(payload: Payload, s: int) -> Payload:
     return {k: torch.roll(v, s, dims=0) for k, v in payload.items()}
+
+
+class _Lazy(dict):
+    """``{s: make(s)}`` made on access and not kept, so that a mix holds one
+    rolled or decoded neighbour at a time."""
+
+    def __init__(self, make: Callable[[int], torch.Tensor]):
+        super().__init__()
+        self.make = make
+
+    def __missing__(self, s: int) -> torch.Tensor:
+        return self.make(s)
+
+
+def _on_device(w, device):
+    """A plan weight for the device: a scalar stays a float, an (n,) numpy
+    vector becomes a float32 tensor there, once a round rather than once a
+    leaf (a copy from host memory waits for the device's queue)."""
+    if isinstance(w, np.ndarray):
+        return torch.as_tensor(w, dtype=torch.float32, device=device)
+    return w
 
 
 def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
@@ -144,35 +236,74 @@ def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
     return losses_t.detach(), met, grads
 
 
+def _consensus(params: Any) -> torch.Tensor:
+    """``sum_leaves sum_i ||x_i - mean_j x_j||^2`` in float32, the mean taken
+    of the differences to node 0, so that identical replicas give exactly 0
+    (a float32 mean of equal values need not return the value)."""
+    total = 0.0
+    for l in tree_leaves(params):
+        d = l - l[:1]
+        d.sub_(d.mean(dim=0, keepdim=True))
+        total = total + torch.sum(d.square_())
+    return total
+
+
+@dataclasses.dataclass
+class _Round:
+    """One gossip round of a step: its plan, effective encode counter, the
+    mixing weights on the device (``None``: the plan's own, unchanged) and,
+    under drops, the dropped rows of every replica shift."""
+    plan: GossipPlan
+    enc: int
+    weights: Optional[Tuple[Any, Dict[int, Any]]] = None
+    dropped: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
 def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, plan,
-                         lr_schedule: Callable[[int], float], gamma: float = 0.5):
+                         lr_schedule: Callable[[int], float], gamma: float = 0.5,
+                         drop=None):
     """Build ``step(state, batch) -> (state, metrics)``; ``state`` is updated
     in place and returned.
 
     ``loss_fn(params_i, batch_i) -> (loss, metrics)`` is the per-node loss;
     ``batch`` leaves are (n, per_node_batch, ...).  ``wire`` is a
-    :class:`WireFormat` or spec string (``"quant:4"``, ``"sign"``), ``plan``
-    a :class:`GossipPlan` or a node count (ring), ``lr_schedule`` a host
-    function of the integer step.  ``gamma`` is CHOCO's consensus stepsize
-    (``X <- X_half + gamma*(mix(hat) - hat_self)``), in (0, 1]; the other
-    algorithms ignore it."""
-    if algo not in ALGOS:
-        raise ValueError(f"ported algorithms are {ALGOS}, got {algo!r}")
+    :class:`WireFormat` or spec string (``"quant:4"``, ``"sign"``), or
+    ``None`` (full precision: cpsgd and dpsgd, which ignore any wire);
+    ``plan`` a :class:`GossipPlan`, :class:`GossipSchedule` or a node count
+    (ring); ``lr_schedule`` a host function of the integer step.  ``gamma``
+    is CHOCO's consensus stepsize (``X <- X_half + gamma*(mix(hat) -
+    hat_self)``), in (0, 1]; the other algorithms ignore it.  ``drop`` (a
+    :class:`DropSpec`, rate or ``"rate[:salt[:decay]]"``; None or 0: none)
+    injects the deterministic edge drops described in the module
+    docstring."""
+    _check_algo(algo)
     if not 0.0 < gamma <= 1.0:
         raise ValueError(f"CHOCO consensus stepsize gamma={gamma} must lie in (0, 1]")
     gamma32 = float(np.float32(gamma))
-    wire: WireFormat = make_wire_format(wire)
-    plan = make_gossip_plan(_resolve_plan(plan))
-    salt = _SALT[algo]
-    wire_aux_key = wire.aux_name if wire.stateful else None
+    sched = _resolve_plan(plan)
+    rounds, period, union, n = sched.rounds, sched.period, sched.shift_union, sched.n
+    time_varying = sched.time_varying and period > 1
+    drop = make_drop_spec(drop)
+    if drop is not None and algo == "cpsgd":
+        raise ValueError("drop injection models gossip-edge failure; the cpsgd AllReduce "
+                         "baseline assumes the reliable datacenter fabric")
+    if algo in WIRE_ALGOS:
+        if wire is None:
+            raise ValueError(f"{algo} encodes its gossip: give it a wire format")
+        wire = make_wire_format(wire)
+    else:
+        wire = None
+    salt = _SALT.get(algo)
+    wire_aux_key = wire.aux_name if wire is not None and wire.stateful else None
 
     def _leaves(state: DistState):
         """The params' leaves in flatten order with each one's wire format."""
         items = leaf_items(state.params)
-        return [x for _, x in items], [wire.route(p, x.shape) for p, x in items]
+        return ([x for _, x in items],
+                [wire.route(p, x.shape) if wire is not None else None for p, x in items])
 
-    def _encode(state: DistState, li: int, lw: WireFormat, z: torch.Tensor) -> Payload:
-        seed = leaf_seed(state.step, salt, li)
+    def _encode(state: DistState, enc: int, li: int, lw: WireFormat, z: torch.Tensor) -> Payload:
+        seed = leaf_seed(enc, salt, li)
         if wire_aux_key is None:
             return lw.encode(z, seed)
         if wire_aux_key not in state.aux:
@@ -181,103 +312,203 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         payload, _ = wire.encode_leaf_stateful(z, seed, li, state.aux[wire_aux_key])
         return payload
 
-    def _dcd_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        X, lws = _leaves(state)
-        m, v = _moment_leaves(state.opt, len(X))
-        reps = {s: tree_leaves(state.aux[f"rep{s:+d}"]) for s in plan.shift_union}
-        for li, (x, lw) in enumerate(zip(X, lws)):
-            g, grads[li] = grads[li], None        # free each gradient once used
-            z = mix_leaf(plan, x, {s: reps[s][li] for s in plan.shift_list})
-            z.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
-            del g
-            z.sub_(x)                                            # Z = X_half - X
-            payload = _encode(state, li, lw, z)
-            del z
-            # receive side: one fused kernel per leaf and per tree; every
-            # replica advances with the rolled words, so rep{s} == roll(X, s)
-            lw.decode_axpy_(payload, x, 1.0)
-            for s in plan.shift_union:
-                lw.decode_axpy_(_roll_payload(payload, s), reps[s][li], 1.0)
+    def _plan_rounds(state: DistState, device) -> List[_Round]:
+        """This step's rounds with their counters, and under drops their
+        masks: freshness advanced round by round (replica algorithms), the
+        gated weights and the dropped rows, all before the leaf loop."""
+        if time_varying:
+            todo = [(rounds[state.step % period], state.step)]
+        else:
+            todo = [(rnd, state.step * period + r) for r, rnd in enumerate(rounds)]
+        out = []
+        for rnd, enc in todo:
+            if drop is None:
+                weights = None if rnd.uniform else (
+                    _on_device(rnd.self_weight, device),
+                    {s: _on_device(w, device) for s, w in rnd.shifts})
+                out.append(_Round(rnd, enc, weights))
+                continue
+            if algo in REPLICA_ALGOS:
+                masks = {s: edge_drop_mask(n, s, enc, drop) for s in union}
+                for s in union:
+                    k = fresh_key(s, drop.salt)
+                    state.aux[k] = update_freshness(state.aux[k], masks[s], drop.decay)
+                gates = {s: masks[s] * state.aux[fresh_key(s, drop.salt)]
+                         for s in rnd.shift_list}
+                dropped = {s: torch.nonzero(masks[s] == 0).reshape(-1).to(device)
+                           for s in union if not bool(masks[s].all())}
+            else:
+                gates = {s: edge_drop_mask(n, s, enc, drop) for s in rnd.shift_list}
+                dropped = {}
+            self_w, ws = gated_weights(rnd, gates)
+            out.append(_Round(rnd, enc, (self_w.to(device), {s: w.to(device)
+                                                             for s, w in ws.items()}),
+                              dropped))
+        return out
 
-    def _ecd_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        s_t = np.float32(state.step + 1)
-        za, zb = float(np.float32(1.0) - np.float32(0.5) * s_t), float(np.float32(0.5) * s_t)
-        blend = float(np.float32(2.0) / s_t)
-        est_decay = float(np.float32(1.0) - np.float32(2.0) / s_t)
-        X, lws = _leaves(state)
-        m, v = _moment_leaves(state.opt, len(X))
+    def _advance(rnd: _Round, s: int, lw: WireFormat, payload: Payload, acc: torch.Tensor,
+                 weight: float, acc_weight: float = 1.0) -> None:
+        """Decode the payload rolled by ``s`` into the replica ``acc`` in
+        place, leaving the rows of the nodes whose edge dropped as they were."""
+        rows = rnd.dropped.get(s)
+        kept = acc.index_select(0, rows) if rows is not None else None
+        lw.decode_axpy_(_roll_payload(payload, s), acc, weight, acc_weight)
+        if kept is not None:
+            acc.index_copy_(0, rows, kept)
+
+    def _cpsgd(state, grads, lr, t, X, lws, m, v, rnds):
+        for li, x in enumerate(X):
+            g, grads[li] = grads[li], None
+            upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+            del g
+            x.add_(upd.mean(dim=0, keepdim=True).expand_as(upd))
+
+    def _dpsgd(state, grads, lr, t, X, lws, m, v, rnds):
+        for li, x in enumerate(X):
+            cur = x
+            for rnd in rnds:
+                cur = mix_leaf(rnd.plan, cur,
+                               _Lazy(lambda s, c=cur: torch.roll(c, s, dims=0)), rnd.weights)
+            g, grads[li] = grads[li], None
+            cur.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
+            del g
+            x.copy_(cur)
+
+    def _naive(state, grads, lr, t, X, lws, m, v, rnds):
+        # compress the exchanged models directly — provably non-convergent
+        for li, (x, lw) in enumerate(zip(X, lws)):
+            cur = x
+            for rnd in rnds:
+                payload = _encode(state, rnd.enc, li, lw, cur)
+                dec = _Lazy(lambda s, p=payload, c=cur: lw.decode(_roll_payload(p, s), c))
+                cur = mix_leaf(rnd.plan, lw.decode(payload, cur), dec, rnd.weights)
+                del payload, dec
+            g, grads[li] = grads[li], None
+            cur.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
+            del g
+            x.copy_(cur)
+
+    def _dcd(state, grads, lr, t, X, lws, m, v, rnds):
+        reps = {s: tree_leaves(state.aux[f"rep{s:+d}"]) for s in union}
+        for li, (x, lw) in enumerate(zip(X, lws)):
+            g, grads[li] = grads[li], None
+            for r, rnd in enumerate(rnds):
+                z = mix_leaf(rnd.plan, x, {s: reps[s][li] for s in rnd.plan.shift_list},
+                             rnd.weights)
+                if r == 0:
+                    z.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
+                    del g
+                z.sub_(x)                                                # Z = X_half - X
+                payload = _encode(state, rnd.enc, li, lw, z)
+                del z
+                # one fused receive kernel per tree; every replica advances
+                # with the rolled words, so rep{s} == roll(X, s)
+                lw.decode_axpy_(payload, x, 1.0)
+                for s in union:
+                    _advance(rnd, s, lw, payload, reps[s][li], 1.0)
+                del payload
+
+    def _ecd(state, grads, lr, t, X, lws, m, v, rnds):
         tilde_self = tree_leaves(state.aux["tilde_self"])
-        tildes = {s: tree_leaves(state.aux[f"tilde{s:+d}"]) for s in plan.shift_union}
+        tildes = {s: tree_leaves(state.aux[f"tilde{s:+d}"]) for s in union}
+        consts = []
+        for rnd in rnds:
+            s_t = np.float32(rnd.enc + 1)
+            consts.append((float(np.float32(1.0) - np.float32(0.5) * s_t),
+                           float(np.float32(0.5) * s_t), float(np.float32(2.0) / s_t),
+                           float(np.float32(1.0) - np.float32(2.0) / s_t)))
         for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
-            x_next = mix_leaf(plan, tilde_self[li], {s: tildes[s][li] for s in plan.shift_list})
-            x_next.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
-            del g
-            z = za * x + zb * x_next
-            payload = _encode(state, li, lw, z)
-            del z
-            # est_decay*tilde + blend*decode in one fused pass per tree
-            lw.decode_axpy_(payload, tilde_self[li], blend, est_decay)
-            for s in plan.shift_union:
-                lw.decode_axpy_(_roll_payload(payload, s), tildes[s][li], blend, est_decay)
-            x.copy_(x_next)
+            for r, (rnd, (za, zb, blend, est_decay)) in enumerate(zip(rnds, consts)):
+                x_next = mix_leaf(rnd.plan, tilde_self[li],
+                                  {s: tildes[s][li] for s in rnd.plan.shift_list}, rnd.weights)
+                if r == 0:
+                    x_next.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
+                    del g
+                z = za * x + zb * x_next
+                payload = _encode(state, rnd.enc, li, lw, z)
+                del z
+                # est_decay*tilde + blend*decode in one fused pass per tree
+                lw.decode_axpy_(payload, tilde_self[li], blend, est_decay)
+                for s in union:
+                    _advance(rnd, s, lw, payload, tildes[s][li], blend, est_decay)
+                del payload
+                x.copy_(x_next)
+                del x_next
 
-    def _choco_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        X, lws = _leaves(state)
-        m, v = _moment_leaves(state.opt, len(X))
+    def _choco(state, grads, lr, t, X, lws, m, v, rnds):
         hat_self = tree_leaves(state.aux["hat_self"])
-        hats = {s: tree_leaves(state.aux[f"hat{s:+d}"]) for s in plan.shift_union}
+        hats = {s: tree_leaves(state.aux[f"hat{s:+d}"]) for s in union}
         for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
-            x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
-            del g
-            z = x - hat_self[li]                                 # Z = X_half - hat_self
-            payload = _encode(state, li, lw, z)
-            del z
-            # every node decodes the words it sent, so hat_self stays equal
-            # to each neighbour's hat{s} of it: hat{s} == roll(hat_self, s)
-            lw.decode_axpy_(payload, hat_self[li], 1.0)
-            for s in plan.shift_union:
-                lw.decode_axpy_(_roll_payload(payload, s), hats[s][li], 1.0)
-            del payload
-            mixed = mix_leaf(plan, hat_self[li], {s: hats[s][li] for s in plan.shift_list})
-            mixed.sub_(hat_self[li])
-            x.add_(mixed.mul_(gamma32))                          # X_half + gamma*(mix - hat)
+            for r, rnd in enumerate(rnds):
+                if r == 0:
+                    x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
+                    del g
+                z = x - hat_self[li]                                     # Z = X_half - hat_self
+                payload = _encode(state, rnd.enc, li, lw, z)
+                del z
+                # every node decodes the words it sent, so hat_self stays equal
+                # to each neighbour's hat{s} of it: hat{s} == roll(hat_self, s)
+                lw.decode_axpy_(payload, hat_self[li], 1.0)
+                for s in union:
+                    _advance(rnd, s, lw, payload, hats[s][li], 1.0)
+                del payload
+                mixed = mix_leaf(rnd.plan, hat_self[li],
+                                 {s: hats[s][li] for s in rnd.plan.shift_list}, rnd.weights)
+                mixed.sub_(hat_self[li])
+                x.add_(mixed.mul_(gamma32))                              # X_half + gamma*(mix - hat)
+                del mixed
 
-    def _deepsqueeze_round(state: DistState, grads: List[torch.Tensor], lr: float, t: int):
-        X, lws = _leaves(state)
-        m, v = _moment_leaves(state.opt, len(X))
+    def _deepsqueeze(state, grads, lr, t, X, lws, m, v, rnds):
         errs = tree_leaves(state.aux["err_self"])
         for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
-            x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
-            del g
-            err = errs[li].add_(x)                               # V = X_half + err
-            payload = _encode(state, li, lw, err)
-            d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
-            # each neighbour's payload is decoded straight into the mix with
-            # its weight: acc + w*dec(roll(P, s)), the JAX plan_mix's
-            # ``out + w*nbr`` of a zero-based decode, without the buffer
-            mixed = plan.self_weight * d_self
-            for s, w in plan.shifts:
-                lw.decode_axpy_(_roll_payload(payload, s), mixed, w)
-            # the residual last: an identity payload is the V buffer itself
-            lw.decode_axpy_(payload, err, -1.0)                  # err = V - dec(V)
-            del payload
-            x.add_(mixed.sub_(d_self))                           # X_half + (mix - D_self)
+            for r, rnd in enumerate(rnds):
+                if r == 0:
+                    x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
+                    del g
+                err = errs[li].add_(x)                                   # V = X_half + err
+                payload = _encode(state, rnd.enc, li, lw, err)
+                d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
+                if rnd.weights is None and rnd.plan.uniform:
+                    # scalar weights: each neighbour's payload is decoded
+                    # straight into the mix, acc + w*dec(roll(P, s)) — the JAX
+                    # plan_mix's ``out + w*nbr`` of a zero-based decode
+                    mixed = rnd.plan.self_weight * d_self
+                    for s, w in rnd.plan.shifts:
+                        lw.decode_axpy_(_roll_payload(payload, s), mixed, w)
+                else:
+                    # per-node or gated weights: the kernels take a scalar
+                    # weight, so decode each neighbour at 1.0 and mix
+                    self_w, ws = rnd.weights if rnd.weights is not None else (
+                        rnd.plan.self_weight, dict(rnd.plan.shifts))
+                    mixed = weight_for(self_w, x) * d_self
+                    for s in rnd.plan.shift_list:
+                        dec = lw.decode_axpy_(_roll_payload(payload, s), torch.zeros_like(x),
+                                              1.0)
+                        mixed.add_(weight_for(ws[s], x) * dec)
+                        del dec
+                # the residual last: an identity payload is the V buffer itself
+                lw.decode_axpy_(payload, err, -1.0)                      # err = V - dec(V)
+                del payload
+                x.add_(mixed.sub_(d_self))                               # X_half + (mix - D_self)
+                del mixed, d_self
 
-    round_fn = {"dcd": _dcd_round, "ecd": _ecd_round, "choco": _choco_round,
-                "deepsqueeze": _deepsqueeze_round}[algo]
+    run = {"cpsgd": _cpsgd, "dpsgd": _dpsgd, "naive": _naive, "dcd": _dcd, "ecd": _ecd,
+           "choco": _choco, "deepsqueeze": _deepsqueeze}[algo]
 
     def step(state: DistState, batch: Dict[str, torch.Tensor]) -> Tuple[DistState, Dict]:
         losses, metrics, grads = _node_grads(loss_fn, state.params, batch)
         lr = lr_schedule(state.step)
         t = state.opt.step + 1
         with torch.no_grad():
-            round_fn(state, grads, lr, t)
+            X, lws = _leaves(state)
+            m, v = _moment_leaves(state.opt, len(X))
+            rnds = [] if algo == "cpsgd" else _plan_rounds(state, X[0].device)
+            run(state, grads, lr, t, X, lws, m, v, rnds)
             state.opt.step = t
-            consensus = sum(torch.sum((l - l.mean(dim=0, keepdim=True)) ** 2)
-                            for l in tree_leaves(state.params))
+            consensus = _consensus(state.params)
         state.step += 1
         return state, {"loss": losses.mean(), "lr": lr, "consensus": consensus, **metrics}
 

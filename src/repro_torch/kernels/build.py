@@ -28,8 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _I64 = ctypes.c_longlong
 
-# C signature of every exported launcher: (argtypes), restype is int
-# (the cudaError_t of cudaGetLastError after the launch).
+# C signature of every exported function: (argtypes), restype is int (for a
+# launcher, the cudaError_t of cudaGetLastError after the launch).
 SIGNATURES = {
     "quant": {
         "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
@@ -44,6 +44,7 @@ SIGNATURES = {
     },
     "sparse": {
         "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _F, _P),
+        "sparse_select_pack_2d_grid": (_I, _I, _I, _I),
         "sparse_scatter_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
         "sparse_unpack_scatter_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },

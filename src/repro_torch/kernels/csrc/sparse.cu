@@ -637,34 +637,99 @@ int rows_per_cta_for(int cols) {
 
 // Enough CTAs of `warps` warps to fill every SM at the kernel's occupancy,
 // and no more than the rows need.  The CTAs that fit the device are looked up
-// once for each kernel, device and shared-memory size, and kept.
-template <typename Kernel>
-int persistent_grid(Kernel kernel, int rows, int warps, size_t smem) {
-  thread_local int dev_of = -1, fit = 0;
-  thread_local size_t smem_of = 0;
+// once for each kernel (each template instance is a kernel of its own),
+// device and shared-memory size, and kept in a small table keyed by all
+// three.
+struct GridFit {
+  const void* kernel;
+  int dev;
+  size_t smem;
+  int fit;
+};
+constexpr int kGridFits = 32;
+
+int persistent_grid(const void* kernel, int rows, int warps, size_t smem) {
+  thread_local GridFit fits[kGridFits];
+  thread_local int n_fits = 0;
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev != dev_of || smem != smem_of) {
+  int fit = 0;
+  for (int i = 0; i < std::min(n_fits, kGridFits) && fit == 0; ++i)
+    if (fits[i].kernel == kernel && fits[i].dev == dev && fits[i].smem == smem)
+      fit = fits[i].fit;
+  if (fit == 0) {
     int sms = 1, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, warps * 32, smem);
-    dev_of = dev;
-    smem_of = smem;
     fit = std::max(1, per_sm) * sms;
+    fits[n_fits++ % kGridFits] = GridFit{kernel, dev, smem, fit};
   }
   const long long need = (static_cast<long long>(rows) + warps - 1) / warps;
   return static_cast<int>(std::min<long long>(need, fit));
 }
 
 template <int C, int R>
-void launch_select_regs(const float* x, void* values, uint32_t* words, int rows, int cols,
-                        int k, const IdxStream& st, int topk, int half_values, uint32_t seed,
-                        float rescale, int vec, cudaStream_t s) {
+int launch_select_regs(const float* x, void* values, uint32_t* words, int rows, int cols,
+                       int k, const IdxStream& st, int topk, int half_values, uint32_t seed,
+                       float rescale, int vec, cudaStream_t s, bool launch) {
   const size_t smem = static_cast<size_t>(kSelWarps) * R * st.words * sizeof(uint32_t);
-  const int grid = persistent_grid(sparse_select_pack_regs_kernel<C, R>, (rows + R - 1) / R,
-                                   kSelWarps, smem);
-  sparse_select_pack_regs_kernel<C, R><<<grid, kSelWarps * 32, smem, s>>>(
-      x, values, words, rows, cols, k, st, topk, half_values, seed, rescale, vec);
+  const void* kernel = reinterpret_cast<const void*>(sparse_select_pack_regs_kernel<C, R>);
+  const int grid = persistent_grid(kernel, (rows + R - 1) / R, kSelWarps, smem);
+  if (launch)
+    sparse_select_pack_regs_kernel<C, R><<<grid, kSelWarps * 32, smem, s>>>(
+        x, values, words, rows, cols, k, st, topk, half_values, seed, rescale, vec);
+  return grid;
+}
+
+// Launches K6 on the path its shape takes and returns the grid; with
+// `launch` false it only returns the grid (-1 for a shape no path takes).
+int select_pack(const float* xf, void* values, uint32_t* words, int rows, int cols, int k,
+                const IdxStream& st, int topk, int half_values, uint32_t seed, float rescale,
+                int vec, cudaStream_t s, bool launch) {
+  if (cols == kRowCols && st.groups == 1 && k <= kRowK && vec) {
+    const int grid = (rows + kRowWarps * 32 - 1) / (kRowWarps * 32);
+    if (!launch) return grid;
+    if (topk) {
+      sparse_select_pack_row_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
+          xf, values, words, rows, k, st.words, half_values, seed, rescale);
+    } else {
+      sparse_select_pack_row_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
+          xf, values, words, rows, k, st.words, half_values, seed, rescale);
+    }
+    return grid;
+  }
+  if (cols <= kRegCols) {
+    switch (cols / 32) {
+#define K6_REGS(C, R)                                                                   \
+  case (C) / (R):                                                                       \
+    return launch_select_regs<(C), (R)>(xf, values, words, rows, cols, k, st, topk,     \
+                                        half_values, seed, rescale, vec, s, launch);
+      K6_REGS(8, 2)     // the sparse wire's block: two rows a warp, 8 columns a lane
+      K6_REGS(8, 1) K6_REGS(12, 1) K6_REGS(16, 1) K6_REGS(20, 1) K6_REGS(24, 1) K6_REGS(28, 1)
+      K6_REGS(32, 1)
+#undef K6_REGS
+      default:
+        return -1;
+    }
+  }
+  // per warp: values and keys (4 B a column), index words, 16-bit columns
+  const size_t per_warp =
+      (2 * static_cast<size_t>(cols) + st.words + cols / 2) * sizeof(uint32_t);
+  const int warps = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(kSelWarps, kSelStageBytes / per_warp)));
+  const size_t smem = warps * per_warp;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(sparse_select_pack_smem_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return -1;
+  }
+  const int grid = persistent_grid(reinterpret_cast<const void*>(sparse_select_pack_smem_kernel),
+                                   rows, warps, smem);
+  if (launch)
+    sparse_select_pack_smem_kernel<<<grid, warps * 32, smem, s>>>(
+        xf, values, words, rows, cols, k, st, topk, half_values, seed, rescale);
+  return grid;
 }
 
 }  // namespace
@@ -682,53 +747,22 @@ extern "C" int sparse_select_pack_2d_launch(const void* x, void* values, void* i
   IdxStream st;
   if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  uint32_t* words = static_cast<uint32_t*>(idx_words);
   const int vec = (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
-  if (cols == kRowCols && st.groups == 1 && k <= kRowK && vec) {
-    const int grid = (rows + kRowWarps * 32 - 1) / (kRowWarps * 32);
-    if (topk) {
-      sparse_select_pack_row_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
-          xf, values, words, rows, k, st.words, half_values, seed, rescale);
-    } else {
-      sparse_select_pack_row_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
-          xf, values, words, rows, k, st.words, half_values, seed, rescale);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (cols <= kRegCols) {
-    switch (cols / 32) {
-#define K6_REGS(C, R)                                                                  \
-  case (C) / (R):                                                                      \
-    launch_select_regs<(C), (R)>(xf, values, words, rows, cols, k, st, topk, half_values, \
-                                 seed, rescale, vec, s);                               \
-    break;
-      K6_REGS(8, 2)     // the sparse wire's block: two rows a warp, 8 columns a lane
-      K6_REGS(8, 1) K6_REGS(12, 1) K6_REGS(16, 1) K6_REGS(20, 1) K6_REGS(24, 1) K6_REGS(28, 1)
-      K6_REGS(32, 1)
-#undef K6_REGS
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  // per warp: values and keys (4 B a column), index words, 16-bit columns
-  const size_t per_warp =
-      (2 * static_cast<size_t>(cols) + st.words + cols / 2) * sizeof(uint32_t);
-  const int warps = static_cast<int>(
-      std::max<size_t>(1, std::min<size_t>(kSelWarps, kSelStageBytes / per_warp)));
-  const size_t smem = warps * per_warp;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(sparse_select_pack_smem_kernel,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int grid = persistent_grid(sparse_select_pack_smem_kernel, rows, warps, smem);
-  sparse_select_pack_smem_kernel<<<grid, warps * 32, smem, s>>>(
-      xf, values, words, rows, cols, k, st, topk, half_values, seed, rescale);
+  const int grid = select_pack(static_cast<const float*>(x), values,
+                               static_cast<uint32_t*>(idx_words), rows, cols, k, st, topk,
+                               half_values, seed, rescale, vec,
+                               static_cast<cudaStream_t>(stream), true);
+  if (grid < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grid K6 takes for (rows, cols, k, kpad) from a 16-byte aligned input,
+// without launching; -1 for a shape the launcher refuses.
+extern "C" int sparse_select_pack_2d_grid(int rows, int cols, int k, int kpad) {
+  IdxStream st;
+  if (rows < 1 || !stream_for(cols, kpad, &st) || k < 1 || k > kpad) return -1;
+  return select_pack(nullptr, nullptr, nullptr, rows, cols, k, st, 1, 0, 0u, 1.0f, 1,
+                     nullptr, false);
 }
 
 extern "C" int sparse_scatter_axpy_2d_launch(const void* values, const void* idx_words,

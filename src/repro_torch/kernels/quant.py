@@ -328,6 +328,18 @@ def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
     return values, words
 
 
+def sparse_select_pack_2d_grid(rows: int, cols: int, p: float) -> int:
+    """The CUDA grid (CTAs) K6 takes for a 16-byte aligned (rows, cols) fold
+    at keep fraction ``p``, read from the launcher's own dispatch without
+    launching; builds the library on first use."""
+    _check_block(cols)
+    k, _, kpad, _ = sparse_geometry(cols, p)
+    grid = build.load("sparse").sparse_select_pack_2d_grid(rows, cols, k, kpad)
+    if grid < 0:
+        raise ValueError(f"K6 takes no ({rows}, {cols}) fold at p={p}")
+    return grid
+
+
 def sparse_unpack_scatter_2d(values: torch.Tensor, packed: torch.Tensor, *,
                              cols: int) -> torch.Tensor:
     """Fused unpack + scatter: (rows, k) values and their stream-packed

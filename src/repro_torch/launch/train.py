@@ -1,19 +1,34 @@
-"""Decentralized training entry point (single phase).
+"""Decentralized training entry point.
 
 The port of the JAX package's ``launch/train.py``: the same ``TrainConfig``
-fields and defaults, one static {topology, wire} for the whole run.  The
-stacked node axis lives on one device — the GPU unless ``device="cpu"`` —
-and every gossip payload rides the port's kernels.
+fields and defaults and the same phase loop, checkpoints and edge drops.
+The stacked node axis lives on one device — the GPU unless ``device="cpu"``
+— and every gossip payload rides the port's kernels.
 
     python -m repro_torch.launch.train --algo dcd --wire quant:4 --steps 20
     python -m repro_torch.launch.train --algo choco --wire sign --steps 20
     python -m repro_torch.launch.train --algo dcd --wire lowrank:2:warm --steps 20
-    python -m repro_torch.launch.train --algo choco --steps 20 \
-        --wire adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4
+    python -m repro_torch.launch.train --algo dpsgd --topology chain --steps 20
+    python -m repro_torch.launch.train --algo naive --wire quant:4 --drop-rate 0.1
+    python -m repro_torch.launch.train --algo dcd --topology full_logn --steps 20
+    python -m repro_torch.launch.train --algo dcd \
+        --phase-plan "0@ring@quant:8;150@full_logn@quant:4"
+    python -m repro_torch.launch.train --algo dcd --ckpt-dir ckpt --ckpt-every 50
 
-Not ported yet (the flags exist and raise when set): checkpoints
-(``--ckpt-dir``), phase plans (``--phase-plan``) and edge drops
-(``--drop-rate``).
+``--algo`` is any of cpsgd, dpsgd, naive, dcd, ecd, choco and deepsqueeze;
+``--topology`` any name of
+:data:`~repro_torch.distributed.gossip.GOSSIP_TOPOLOGIES`.  ``--phase-plan``
+(:class:`~repro_torch.netsim.controller.PhasePlan`) overrides ``--wire`` and
+``--topology`` with a step-indexed schedule: the step is rebuilt at each
+boundary and the aux trees resync to the new plan and wire
+(:func:`~repro_torch.distributed.decentralized.rekey_dist_state`).
+``--ckpt-dir`` resumes from the directory's latest checkpoint and, with
+``--ckpt-every``, saves there.
+
+Where the port differs from the JAX driver on purpose: the JAX driver jits
+each phase's step and guards against retraces (a step that compiles more
+than once a segment raises); the port runs eagerly, compiles nothing, and
+has no such guard.  It runs on one device, with no mesh.
 """
 from __future__ import annotations
 
@@ -25,13 +40,20 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data import DataConfig, stacked_node_batches
-from repro_torch.distributed.decentralized import init_dist_state, make_dist_train_step
+from repro_torch.distributed.decentralized import (
+    init_dist_state,
+    make_dist_train_step,
+    rekey_dist_state,
+)
+from repro_torch.distributed.failures import make_drop_spec
 from repro_torch.distributed.gossip import make_gossip_plan
 from repro_torch.distributed.wire import make_wire_format
 from repro_torch.models.api import build_model
+from repro_torch.netsim.controller import Phase, PhasePlan
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import linear_warmup_cosine
 
@@ -39,11 +61,11 @@ from repro_torch.optim.schedules import linear_warmup_cosine
 @dataclasses.dataclass
 class TrainConfig:
     arch: Optional[str] = None          # assigned arch id, or None for custom cfg
-    algo: str = "dcd"                   # dcd | ecd | choco | deepsqueeze
+    algo: str = "dcd"                   # cpsgd | dpsgd | naive | dcd | ecd | choco | deepsqueeze
     wire: str = "quant:8"               # gossip wire-format spec (make_wire_format)
-    gamma: float = 0.5                  # CHOCO consensus stepsize
+    gamma: float = 0.5                  # CHOCO consensus stepsize, in (0, 1]
     topology: str = "ring"              # gossip plan name (make_gossip_plan)
-    phase_plan: Optional[str] = None    # not ported
+    phase_plan: Optional[str] = None    # "start@topology@wire;..." overrides wire+topology
     n_nodes: int = 8
     seq_len: int = 256
     global_batch: int = 32
@@ -51,22 +73,16 @@ class TrainConfig:
     lr: float = 3e-3
     warmup: int = 20
     optimizer: str = "adamw"
-    drop_rate: float = 0.0              # not ported: must stay 0
-    drop_salt: int = 0
+    drop_rate: float = 0.0              # per-edge gossip drop probability (0 = reliable)
+    drop_salt: int = 0                  # stream salt for the deterministic drop mask
     seed: int = 0
-    ckpt_dir: Optional[str] = None      # not ported
+    ckpt_dir: Optional[str] = None
     ckpt_every: int = 100
     log_every: int = 10
     reduced: bool = True                # use the reduced config (CPU-scale)
 
 
-def _check_ported(tc: TrainConfig) -> None:
-    if tc.phase_plan:
-        raise NotImplementedError("--phase-plan is not ported yet")
-    if tc.drop_rate:
-        raise NotImplementedError("--drop-rate is not ported yet")
-    if tc.ckpt_dir:
-        raise NotImplementedError("--ckpt-dir (checkpoints) is not ported yet")
+GOSSIP_ALGOS = ("naive", "dcd", "ecd", "choco", "deepsqueeze")
 
 
 def _sync(device: torch.device) -> None:
@@ -75,44 +91,77 @@ def _sync(device: torch.device) -> None:
 
 
 def run_training(cfg: ArchConfig, tc: TrainConfig, *, device="cuda") -> Dict[str, Any]:
-    """Train ``cfg`` for ``tc.steps`` steps; returns the history: logged
-    ``step``/``loss``/``consensus``, per-step ``losses`` and host-clock
-    ``step_s`` (each step ends in a device synchronize), ``wall_s``,
-    ``final_loss``, and the final ``state`` (a
-    :class:`~repro_torch.distributed.decentralized.DistState`)."""
-    _check_ported(tc)
+    """Train ``cfg`` for ``tc.steps`` steps (from the latest checkpoint of
+    ``tc.ckpt_dir`` when there is one); returns the history: logged
+    ``step``/``loss``/``consensus``, the ``phases`` of the plan, per-step
+    ``losses`` and host-clock ``step_s`` of the steps this run took (each
+    ends in a device synchronize), ``wall_s``, ``final_loss``, and the final
+    ``state`` (a :class:`~repro_torch.distributed.decentralized.DistState`)."""
     device = torch.device(device)
     model = build_model(cfg)
     opt = make_optimizer(tc.optimizer, **({"weight_decay": 0.01} if tc.optimizer == "adamw" else {}))
     sched = linear_warmup_cosine(tc.lr, tc.warmup, tc.steps)
-    plan = make_gossip_plan(tc.topology, tc.n_nodes)
-    wire = make_wire_format(tc.wire)
-    step_fn = make_dist_train_step(model.loss, tc.algo, opt, wire, plan, sched, gamma=tc.gamma)
+    drop = make_drop_spec(tc.drop_rate, salt=tc.drop_salt)
+
+    # one static {topology, wire} is a one-phase plan
+    pplan = PhasePlan.parse(tc.phase_plan) if tc.phase_plan \
+        else PhasePlan((Phase(0, tc.topology, tc.wire),))
+
+    def wire_of(phase: Phase):
+        return make_wire_format(phase.wire) if tc.algo in GOSSIP_ALGOS else None
+
+    start = 0
+    resume_step = latest_step(tc.ckpt_dir) if tc.ckpt_dir else None
+    # a checkpoint at step s was written under the phase that governs step
+    # s - 1: the restore template takes that phase's aux keys
+    init_phase = pplan.phase_at(max(0, (resume_step or 0) - 1))
     params0 = model.init(tc.seed, device=device)
-    state = init_dist_state(tc.algo, params0, plan, opt, wire=wire)
+    state = init_dist_state(tc.algo, params0, make_gossip_plan(init_phase.topology, tc.n_nodes),
+                            opt, drop=drop, wire=wire_of(init_phase))
     del params0
+    if resume_step is not None:
+        state, manifest = restore(tc.ckpt_dir, state, resume_step)
+        start = manifest["step"]
+        print(f"resumed from step {start}", flush=True)
+
     dc = DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len, global_batch=tc.global_batch,
                     n_shards=tc.n_nodes, seed=tc.seed)
-    hist: Dict[str, Any] = {"step": [], "loss": [], "consensus": [], "losses": [], "step_s": []}
+    hist: Dict[str, Any] = {"step": [], "loss": [], "consensus": [], "phases": pplan.records(),
+                            "losses": [], "step_s": []}
     _sync(device)
     t0 = time.perf_counter()
-    for t in range(tc.steps):
-        ts = time.perf_counter()
-        batch = stacked_node_batches(dc, t, device=device)
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])
-        _sync(device)
-        hist["step_s"].append(time.perf_counter() - ts)
-        hist["losses"].append(loss)
-        if (t + 1) % tc.log_every == 0 or t == tc.steps - 1:
-            consensus = float(metrics["consensus"])
-            hist["step"].append(t + 1)
-            hist["loss"].append(loss)
-            hist["consensus"].append(consensus)
-            print(f"step {t+1:5d} loss={loss:.4f} consensus={consensus:.3e} "
-                  f"lr={metrics['lr']:.2e}", flush=True)
+    for seg_start, seg_stop, phase in pplan.segments(tc.steps):
+        if seg_stop <= start:
+            continue
+        plan, wire = make_gossip_plan(phase.topology, tc.n_nodes), wire_of(phase)
+        if 0 < seg_start and seg_start >= start:
+            # phase boundary: resync the aux to the new plan and wire (a
+            # function of the params, so a resume at the boundary equals the
+            # run through it)
+            state = rekey_dist_state(state, tc.algo, plan, drop=drop, wire=wire)
+            print(f"phase switch @ step {seg_start}: topology={phase.topology} "
+                  f"wire={phase.wire}", flush=True)
+        step_fn = make_dist_train_step(model.loss, tc.algo, opt, wire, plan, sched,
+                                       gamma=tc.gamma, drop=drop)
+        for t in range(max(seg_start, start), seg_stop):
+            ts = time.perf_counter()
+            batch = stacked_node_batches(dc, t, device=device)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            _sync(device)
+            hist["step_s"].append(time.perf_counter() - ts)
+            hist["losses"].append(loss)
+            if (t + 1) % tc.log_every == 0 or t == tc.steps - 1:
+                consensus = float(metrics["consensus"])
+                hist["step"].append(t + 1)
+                hist["loss"].append(loss)
+                hist["consensus"].append(consensus)
+                print(f"step {t+1:5d} loss={loss:.4f} consensus={consensus:.3e} "
+                      f"lr={metrics['lr']:.2e}", flush=True)
+            if tc.ckpt_dir and (t + 1) % tc.ckpt_every == 0:
+                save(tc.ckpt_dir, t + 1, state, metadata={"loss": loss})
     hist["wall_s"] = time.perf_counter() - t0
-    hist["final_loss"] = hist["losses"][-1]
+    hist["final_loss"] = hist["losses"][-1] if hist["losses"] else None
     hist["state"] = state
     return hist
 

@@ -3,8 +3,11 @@ from repro_torch.optim.optimizers import (
     Optimizer,
     adamw,
     apply_updates,
+    clip_by_global_norm,
+    global_norm,
     make_optimizer,
     sgd,
 )
 
-__all__ = ["OptState", "Optimizer", "adamw", "apply_updates", "make_optimizer", "sgd"]
+__all__ = ["OptState", "Optimizer", "adamw", "apply_updates", "clip_by_global_norm",
+           "global_norm", "make_optimizer", "sgd"]

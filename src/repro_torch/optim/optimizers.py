@@ -16,7 +16,7 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import leaf_items, tree_from_items, tree_map
+from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -88,6 +88,20 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
 def apply_updates(params: Any, updates: Any) -> Any:
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    """sqrt of the sum, over the leaves in flatten order, of each leaf's
+    float32 sum of squares (a 0-d float32 tensor)."""
+    return torch.sqrt(sum(torch.sum(torch.square(l.to(torch.float32)))
+                          for l in tree_leaves(tree)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
+    """``(grads * min(1, max_norm / (norm + 1e-9)), norm)``."""
+    n = global_norm(grads)
+    scale = torch.clamp(torch.full_like(n, max_norm) / (n + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale, grads), n
 
 
 def make_optimizer(name: str, **kw) -> Optimizer:

@@ -8,6 +8,12 @@ whether a card and nvcc are present when the test runs, never at import, so
 every pytest-xdist worker collects the same tests.  Without a card they skip.
 This file imports no JAX: the plain PyTorch versions are the reference here.
 """
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
 import pytest
 import torch
 
@@ -189,6 +195,48 @@ def test_sparse_select_pack_kernel_unaligned_rows(cuda):
         got = q.sparse_select_pack_2d(x, 11, p=0.05, mode=mode)
         want = ref.sparse_select_pack_2d_ref(x, 11, p=0.05, mode=mode)
         assert torch.equal(got[1], want[1]) and ref.same_bits(got[0], want[0])
+
+
+# Two K6 register instances with the same shared memory a CTA (8 warps x 20
+# index words): 640 columns at p 0.1 take the 20-column span, 1024 at p 0.05
+# the 32-column one.  A grid cache keyed by shared memory alone would hand
+# one instance the other's occupancy.
+GRID_PAIR = ((640, 0.1), (1024, 0.05))
+_GRID_SCRIPT = """
+import json, sys
+from repro_torch.kernels import quant as q
+print(json.dumps([q.sparse_select_pack_2d_grid(200000, int(c), float(p))
+                  for c, p in (a.split(":") for a in sys.argv[1:])]))
+"""
+
+
+def _grids_in_fresh_process(order):
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", _GRID_SCRIPT, *(f"{c}:{p}" for c, p in order)],
+                         capture_output=True, text=True, check=True, env=env, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_sparse_select_pack_grid_keyed_by_kernel(cuda):
+    """K6's persistent grid is looked up per kernel instance: each width's
+    grid is the same whichever width a process asked for first, and launches
+    that alternate the two widths stay bit-equal to the plain version."""
+    (ca, pa), (cb, pb) = GRID_PAIR
+    a_first = _grids_in_fresh_process([(ca, pa), (cb, pb), (ca, pa)])
+    b_first = _grids_in_fresh_process([(cb, pb), (ca, pa), (cb, pb)])
+    assert a_first[0] == a_first[2] == b_first[1], (a_first, b_first)
+    assert b_first[0] == b_first[2] == a_first[1], (a_first, b_first)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(640)
+    xs = {c: ref.sparse_selection_edge_rows(_edge_rows(torch.randn((20000, c), generator=g,
+                                                                   device=cuda)), 4)
+          for c, _ in GRID_PAIR}
+    for c, p in GRID_PAIR * 2:
+        for mode in ("topk", "randk"):
+            got = q.sparse_select_pack_2d(xs[c], 0xFEED, p=p, mode=mode)
+            want = ref.sparse_select_pack_2d_ref(xs[c], 0xFEED, p=p, mode=mode)
+            assert torch.equal(got[1], want[1]) and ref.same_bits(got[0], want[0]), (c, p, mode)
 
 
 @pytest.mark.parametrize("cols", [128, 8192])

@@ -32,7 +32,7 @@ def test_topology_copy_matches_jax():
     with pytest.raises(ValueError):
         ttopo.check_mixing_matrix(np.eye(4))          # disconnected
     with pytest.raises(ValueError):
-        tg.make_gossip_plan("torus", 9)
+        tg.make_gossip_plan("hypercube", 9)           # no such topology
 
 
 def test_plan_mix_and_roll_match_jax():

@@ -15,6 +15,8 @@ the gradient; AdamW, which would turn each near-zero bf16 gradient into a
 The training entry point (``run_training``) and the data pipeline are checked
 here too.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -109,8 +111,11 @@ def test_run_training_on_cpu_keeps_invariants():
     for s in (-1, 1):
         for x, r in zip(tree_leaves(state.params), tree_leaves(state.aux[f"rep{s:+d}"])):
             assert torch.equal(torch.roll(x, s, dims=0), r)
-    with pytest.raises(NotImplementedError):
-        run_training(cfg, TrainConfig(drop_rate=0.1, steps=1), device="cpu")
+    # edge drops run: the step keeps a freshness vector per shift
+    dropped = run_training(cfg, dataclasses.replace(tc, drop_rate=0.1, steps=1), device="cpu")
+    assert np.isfinite(dropped["losses"][0])
+    assert sorted(k for k in dropped["state"].aux if k.startswith("fresh")) == \
+        ["fresh+1@drop0", "fresh-1@drop0"]
 
 
 def test_data_pipeline_is_deterministic_and_sharded():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, train.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, train, serve.
 
     python3 chip_smoke.py
 
@@ -85,6 +85,30 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    stacked DCD over 8-bit ``RandomQuantizer``) on the card against the same
    runs on the CPU (the kernels' plain versions), same params and batches.
 
+9. train_families — DCD ``quant:8`` (K3 sends, K4a decodes) at the
+   published widths of two more families, 3 steps each: mamba2-370m (12 of
+   its 48 layers, 8 nodes) and deepseek-v2-lite-16b (MLA, the dense first
+   layer ``blocks0`` and one MoE layer; 2 nodes).  Launch counts, losses
+   finite, ``lb_loss`` and ``z_loss`` non-zero for the MoE, replicas exactly
+   ``roll(X, s)``.
+10. serve — every architecture of ``ARCH_IDS`` at its published widths
+   through ``repro_torch.launch.serve.serve_batch``: params on the card from
+   a seed, 6 requests in batches of 3, 32-token prompts, 16 new tokens;
+   depth cut only where the float32 weights would pass ``SERVE_WEIGHT_BUDGET``
+   (``SERVE_DEPTHS``).  Prints the prefill ms (the 32 prompt steps through
+   the decode step), decode ms per token, tokens/s, ``Model.prefill`` ms and
+   the serving's peak memory, and profiles 4 decode steps of three archs
+   (``SERVE_PROFILED``); holds every decode step's logits to
+   ``Model.logits`` of the full forward at the same position (bf16, or
+   float32 for the SSM and MoE families; see ``DECODE_REL``); on
+   granite-3-2b, a ring buffer that covers the context equals the full cache
+   and a shorter one differs.
+11. chunked — granite-3-2b ``Model.prefill`` at S 4096 through
+   ``_sdpa_chunked`` against the unchunked ``_sdpa``, and layer 0's attention
+   both ways.
+12. families — each family at its ``reduced()`` width: the card against the
+   CPU, 16 greedy decode steps from the same params and prompts.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` record, and before that the card's name and power
 limit from nvidia-smi.  Without a CUDA device, or without the repository's
@@ -94,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import math
@@ -1262,6 +1287,406 @@ def phase_reference_stacked(torch) -> None:
     assert dl <= 1e-3 and rel <= 0.2, (dl, rel)
 
 
+# ------------------------------------------------------------ serving and families
+
+DEVICE = "cuda"
+# architectures whose f32 weights at full depth exceed what the card holds
+# beside the serving and forward activations: their depth is cut to fit
+SERVE_WEIGHT_BUDGET = 64e9       # bytes of float32 weights
+SERVE_DEPTHS = {"deepseek-moe-16b": 27, "mistral-large-123b": 10, "internvl2-76b": 16}
+SERVE_REQUESTS, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 6, 3, 32, 16
+SERVE_PROFILED = ("granite-3-2b", "zamba2-7b", "deepseek-moe-16b")   # device time of a decode step
+# decode logits against the full forward's at the same position: bf16 (JAX's
+# test_dense_decode_matches_forward holds 5e-2 at the reduced width, where the
+# logits' std is about 0.3; at the published widths the logits' scale grows
+# with sqrt(d_model), so the bound is 5e-2 per 0.3 of the forward logits'
+# std).  Two families are held in float32 compute instead (activations and
+# caches), to F32_DECODE_REL of the std, and their bf16 gap is logged: the
+# SSM's recurrent float32 decode drifts from the chunked bf16 scan with depth
+# (JAX's test_ssm_decode_tracks_forward holds 0.25 of the std at 2-4
+# layers), and the MoE router's top-k flips on near ties when the router
+# logits round differently in a 3-token decode step and in the whole-sequence
+# forward.
+DECODE_REL = 5e-2 / 0.3
+F32_DECODE_REL = 1e-3
+# the card against the CPU at the reduced widths, the same params and prompts
+FAMILY_ATOL = 5e-2
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def serve_config(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=SERVE_DEPTHS[arch]) if arch in SERVE_DEPTHS else cfg
+
+
+def timed_decode(torch, model, times: list):
+    """``model`` whose decode step records its synchronized wall time."""
+    real = model.decode_step
+
+    def step(params, caches, tokens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(params, caches, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return dataclasses.replace(model, decode_step=step)
+
+
+def teacher_forced(torch, model, cfg, params, seq, frames=None, window=None):
+    """Decode ``seq`` (B, S) one position a step from fresh caches; returns
+    the (B, S, V) logits."""
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import layers
+
+    B, S = seq.shape
+    caches = model.init_cache(B, S, window=window, device=seq.device)
+    if layers.COMPUTE_DTYPE != torch.bfloat16:
+        # the caches' bf16 default, in the activations' dtype
+        caches = {k: dataclasses.replace(c, **{
+            f: getattr(c, f).to(layers.COMPUTE_DTYPE) for f in ("k", "v", "c_kv", "k_rope")
+            if hasattr(c, f)}) for k, c in caches.items()}
+    if frames is not None:
+        caches = ed.encdec_prefill_cross(cfg, params, frames, caches)
+    out = []
+    for t in range(S):
+        logits, caches = model.decode_step(params, caches, seq[:, t:t + 1])
+        out.append(logits)
+    return torch.cat(out, dim=1)
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The models' activation dtype (``COMPUTE_DTYPE``) set to ``dtype``
+    for the block."""
+    from repro_torch.models import encdec, layers, lm
+
+    mods = (layers, lm, encdec)
+    saved = [m.COMPUTE_DTYPE for m in mods]
+    for m in mods:
+        m.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        for m, d in zip(mods, saved):
+            m.COMPUTE_DTYPE = d
+
+
+def profile_decode(torch, model, params, tokens, arch: str, steps: int = 4) -> None:
+    """``torch.profiler`` over ``steps`` decode steps of a warm batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    caches = model.init_cache(tokens.shape[0], steps + 1, device=tokens.device)
+    _, caches = model.decode_step(params, caches, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            _, caches = model.decode_step(params, caches, tokens)
+        torch.cuda.synchronize()
+    report_profile(prof, f"serve {arch} decode", steps, time.perf_counter() - t0)
+
+
+def decode_forward_gap(torch, model, cfg, params, seq, frames, batch):
+    """max |decode - forward| of the logits over every position of ``seq``,
+    and the forward logits' std."""
+    with torch.no_grad():
+        full = model.logits(params, dict(batch, tokens=seq)).float()
+    dec = teacher_forced(torch, model, cfg, params, seq, frames).float()
+    assert bool(torch.isfinite(full).all()) and bool(torch.isfinite(dec).all())
+    return float((dec - full).abs().max()), float(full.std())
+
+
+def phase_serve(torch, arch: str) -> dict:
+    """Serve ``arch`` at its published widths (depth cut only where the f32
+    weights would not fit) through ``serve_batch``: 6 requests in batches of
+    3, 32-token prompts, 16 new tokens; then the decode logits against the
+    full forward's at every position of the first batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_leaves
+
+    cfg = serve_config(arch)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device=DEVICE)
+    n_params = sum(l.numel() for l in tree_leaves(params))
+    wbytes = 4 * n_params
+    assert wbytes <= SERVE_WEIGHT_BUDGET, (arch, wbytes)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    prompts = torch.randint(2, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT), generator=gen,
+                            device=DEVICE)
+    times: list = []
+    served = timed_decode(torch, model, times)
+    outs, batch_s = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in range(0, SERVE_REQUESTS, SERVE_BATCH):
+        sampler = torch.Generator(device=DEVICE)
+        sampler.manual_seed(1)
+        tb = time.perf_counter()
+        outs.append(serve_batch(served, params, prompts[b:b + SERVE_BATCH], SERVE_NEW, sampler))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - tb)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steps = SERVE_PROMPT + SERVE_NEW
+    assert len(times) == len(outs) * steps, (len(times), [o.shape for o in outs])
+    last = times[-steps:]                       # the second batch: warm
+    prefill_ms = 1e3 * sum(last[:SERVE_PROMPT])
+    decode_ms = 1e3 * sum(last[SERVE_PROMPT:]) / SERVE_NEW
+    tok_s = SERVE_REQUESTS * steps / wall
+    for o in outs:
+        assert o.shape == (SERVE_BATCH, SERVE_NEW), o.shape
+        assert int(o.min()) >= 0 and int(o.max()) < cfg.vocab, (int(o.min()), int(o.max()))
+    if arch in SERVE_PROFILED:
+        profile_decode(torch, model, params, prompts[:SERVE_BATCH, :1], arch)
+    batch0 = {"tokens": prompts[:SERVE_BATCH]}
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.randn((SERVE_BATCH, cfg.frontend.n_tokens, cfg.frontend.dim),
+                             generator=gen, device=DEVICE)
+        batch0["extra_embeds"] = frames
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: model.prefill(params, batch0), iters=3, warmup=1)
+    seq = torch.cat([prompts[:SERVE_BATCH], outs[0][:, :SERVE_NEW - 1]], dim=1)
+    if cfg.moe:
+        # the router drops tokens past an expert's capacity, which depends on
+        # the tokens routed together (a decode step's batch, the forward's
+        # whole sequence), in JAX as here: hold decode to forward with a
+        # capacity no group can overflow, and log the served config's gap
+        served_gap = decode_forward_gap(torch, model, cfg, params, seq, frames, batch0)[0]
+        log(f"serve {arch}: decode vs forward with capacity_factor "
+            f"{cfg.moe.capacity_factor} (tokens dropped past capacity): "
+            f"max_abs_err={served_gap:.4g}")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+        model = build_model(cfg)
+    err, std = decode_forward_gap(torch, model, cfg, params, seq, frames, batch0)
+    rel, in_f32 = DECODE_REL, bool(cfg.ssm or cfg.moe)
+    if in_f32:
+        log(f"serve {arch}: decode vs forward in bf16 over {seq.shape[1]} positions: "
+            f"max_abs_err={err:.4g} logits_std={std:.4g} ({err / std:.4g} of the std)")
+        with compute_dtype(torch.float32):
+            err, std = decode_forward_gap(torch, model, cfg, params, seq, frames, batch0)
+        rel = F32_DECODE_REL
+    log(f"serve {arch}: n_layers={cfg.n_layers} of {get_config(arch).n_layers} "
+        f"d_model={cfg.d_model} params={n_params} f32_bytes={wbytes} "
+        f"requests={SERVE_REQUESTS} batch={SERVE_BATCH} prompt={SERVE_PROMPT} new={SERVE_NEW}")
+    log(f"serve {arch}: prefill_ms={prefill_ms:.3f} ({SERVE_PROMPT} decode steps, batch "
+        f"{SERVE_BATCH}) "
+        f"decode_ms_per_token={decode_ms:.3f} tokens_per_s={tok_s:.1f} "
+        f"batch_s={[round(x, 4) for x in batch_s]} prefill_forward_ms={fwd_ms:.3f} "
+        f"peak_memory_allocated={peak} B ({peak / 2**30:.2f} GiB)")
+    log(f"serve {arch}: decode vs forward {'in float32 ' if in_f32 else ''}over "
+        f"{seq.shape[1]} positions: max_abs_err={err:.4g} logits_std={std:.4g} "
+        f"bound={rel * std:.4g}")
+    assert math.isfinite(err) and math.isfinite(std), arch
+    assert err <= rel * std, (arch, err, rel * std)
+    if arch == "granite-3-2b":
+        # a ring buffer that covers the context is the full cache; a shorter
+        # one forgets
+        dec = teacher_forced(torch, model, cfg, params, seq).float()
+        cover = teacher_forced(torch, model, cfg, params, seq, window=64).float()
+        short = teacher_forced(torch, model, cfg, params, seq, window=16).float()
+        d_short = float((short - dec).abs().max())
+        log(f"serve {arch}: window 64 vs full cache max_abs_diff="
+            f"{float((cover - dec).abs().max())}; window 16: {d_short:.4g}")
+        assert torch.equal(cover, dec) and d_short > 0.0
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": arch, "n_layers": cfg.n_layers, "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms, "tokens_per_s": tok_s, "peak": peak}
+
+
+def phase_chunked(torch) -> None:
+    """granite-3-2b ``Model.prefill`` at S 4096 (every layer's attention
+    through ``_sdpa_chunked``) against the same prefill with the unchunked
+    ``_sdpa``, and layer 0's attention both ways on the same q, k, v."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import apply_rope, dense, rmsnorm
+    from repro_torch.models.lm import _layer
+
+    cfg = serve_config("granite-3-2b")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0, device=DEVICE)
+    S = attn.FLASH_THRESHOLD
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (1, S), generator=gen, device=DEVICE)
+    with torch.no_grad():
+        chunked_ms = time_ms(torch, lambda: model.prefill(params, {"tokens": toks}), iters=2,
+                             warmup=1)
+        chunked = model.prefill(params, {"tokens": toks}).float()
+        peak_chunked = torch.cuda.max_memory_allocated()
+        threshold = attn.FLASH_THRESHOLD
+        attn.FLASH_THRESHOLD = S + 1
+        try:
+            plain_ms = time_ms(torch, lambda: model.prefill(params, {"tokens": toks}), iters=2,
+                               warmup=1)
+            plain = model.prefill(params, {"tokens": toks}).float()
+        finally:
+            attn.FLASH_THRESHOLD = threshold
+        lp = _layer(params["blocks"], 0)
+        x = rmsnorm(params["embed"][toks].to(torch.bfloat16), lp["ln1"])
+        pos = torch.arange(S, device=DEVICE)
+        q = apply_rope(dense(x, lp["attn"]["wq"]).reshape(1, S, cfg.n_heads, cfg.hd), pos,
+                       cfg.rope_theta)
+        k = apply_rope(dense(x, lp["attn"]["wk"]).reshape(1, S, cfg.n_kv_heads, cfg.hd), pos,
+                       cfg.rope_theta)
+        v = dense(x, lp["attn"]["wv"]).reshape(1, S, cfg.n_kv_heads, cfg.hd)
+        a_chunked = attn._sdpa_chunked(q, k, v).float()
+        a_plain = attn._sdpa(q, k, v, attn.causal_mask(S, device=DEVICE)).float()
+    err, std = float((chunked - plain).abs().max()), float(plain.std())
+    a_err, a_max = float((a_chunked - a_plain).abs().max()), float(a_plain.abs().max())
+    log(f"chunked: granite-3-2b n_layers={cfg.n_layers} prefill S={S}: chunked {chunked_ms:.2f} "
+        f"ms, unchunked {plain_ms:.2f} ms; last-position logits max_abs_err={err:.4g} "
+        f"(std {std:.4g}, bound {DECODE_REL * std:.4g}); layer-0 attention "
+        f"max_abs_err={a_err:.4g} (max |out| {a_max:.4g}, two bf16 ulps there "
+        f"{2 * bf16_ulp(a_max):.4g}); peak with the chunked path {peak_chunked} B "
+        f"({peak_chunked / 2**30:.2f} GiB)")
+    # one layer's attention differs by bf16 rounding of its output (the
+    # chunked path normalizes after the PV product, the plain one before);
+    # 40 layers compound it as the decode path's do (DECODE_REL)
+    assert a_err <= 2 * bf16_ulp(a_max) and err <= DECODE_REL * std, (err, a_err)
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_families_reference(torch) -> None:
+    """Each family at its ``reduced()`` width, the same params and prompts on
+    the card and on the CPU: 16 greedy decode steps on each device, then the
+    card fed the CPU's greedy tokens.  The logits agree within
+    ``FAMILY_ATOL`` at every step, and the card picks the CPU's token
+    wherever the CPU's top two logits are more than twice that apart (a
+    nearer tie may go either way)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import encdec as ed
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_map
+
+    def greedy(model, cfg, p, prompt, frames, dev, forced=None):
+        caches = model.init_cache(2, 17, device=dev)
+        if frames is not None:
+            caches = ed.encdec_prefill_cross(cfg, p, frames.to(dev), caches)
+        cur, logits, toks = prompt.to(dev), [], []
+        for t in range(16):
+            lg, caches = model.decode_step(p, caches, cur)
+            cur = lg.argmax(-1) if forced is None else forced[:, t:t + 1].to(dev)
+            logits.append(lg[:, 0].float().cpu())
+            toks.append(lg.argmax(-1).cpu())
+        return torch.stack(logits, 1), torch.cat(toks, 1)
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        params = model.init(0, device="cpu")
+        gen = torch.Generator()
+        gen.manual_seed(3)
+        prompt = torch.randint(2, cfg.vocab, (2, 1), generator=gen)
+        frames = torch.randn((2, cfg.frontend.n_tokens, cfg.frontend.dim), generator=gen) \
+            if cfg.is_encdec else None
+        card = tree_map(lambda t: t.to(DEVICE), params)
+        lc, tc = greedy(model, cfg, params, prompt, frames, "cpu")
+        _, tg = greedy(model, cfg, card, prompt, frames, DEVICE)
+        lf, tf = greedy(model, cfg, card, prompt, frames, DEVICE, forced=tc)
+        top2 = lc.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * FAMILY_ATOL
+        err = float((lf - lc).abs().max())
+        log(f"families {arch}: reduced, card vs cpu: free-running greedy tokens equal="
+            f"{bool(torch.equal(tg, tc))}; fed the cpu's tokens: logits max_abs_err={err:.4g}, "
+            f"argmax equal at {int(sure.sum())} unambiguous steps of 32: "
+            f"{bool(torch.equal(tf[sure], tc[sure]))}")
+        assert err <= FAMILY_ATOL and torch.equal(tf[sure], tc[sure]), (arch, err)
+
+
+TRAIN_FAMILY_RUNS = (
+    # (arch, n_layers, n_nodes, seq_len, global_batch)
+    ("mamba2-370m", 12, 8, 256, 32),
+    ("deepseek-v2-lite-16b", 2, 2, 256, 4),
+)
+
+
+def phase_train_families(torch, q, arch: str, n_layers: int, n_nodes: int, seq_len: int,
+                         global_batch: int, steps: int = 3) -> dict:
+    """DCD ``quant:8`` at the published widths of a family other than the
+    dense decoder; the replicas must stay exactly ``roll(X, s)``."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.gossip import make_gossip_plan
+    from repro_torch.distributed.wire import make_wire_format
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.train import TrainConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    tc = TrainConfig(arch=arch, algo="dcd", wire="quant:8", topology="ring", n_nodes=n_nodes,
+                     steps=steps, seq_len=seq_len, global_batch=global_batch, log_every=1,
+                     reduced=False)
+    metrics = []
+    real = train_mod.make_dist_train_step
+
+    def traced(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def step_and_record(state, batch):
+            state, met = step(state, batch)
+            metrics.append({k: float(met[k]) for k in ("lb_loss", "z_loss", "xent")})
+            return state, met
+        return step_and_record
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    q.reset_launch_counts()
+    train_mod.make_dist_train_step = traced
+    try:
+        hist = train_mod.run_training(cfg, tc, device=DEVICE)
+    finally:
+        train_mod.make_dist_train_step = real
+    counts = q.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = hist["state"]
+    leaves = tree_leaves(state.params)
+    per_node = sum(l[0].numel() for l in leaves)
+    shifts = make_gossip_plan("ring", n_nodes).shift_list
+    tag = f"train_families {arch}"
+    log(f"{tag}: dcd quant:8 n_layers={n_layers} d_model={cfg.d_model} params/node={per_node} "
+        f"leaves={len(leaves)} nodes={n_nodes} seq={seq_len} global_batch={global_batch}")
+    log(f"{tag}: losses={hist['losses']} "
+        f"lb_loss/z_loss={[(m['lb_loss'], m['z_loss']) for m in metrics]}")
+    log(f"{tag}: step_s={[round(s, 4) for s in hist['step_s']]} peak_memory_allocated={peak} B "
+        f"({peak / 2**30:.2f} GiB); launches {counts}")
+    assert all(math.isfinite(l) for l in hist["losses"]), hist["losses"]
+    if cfg.moe:
+        assert all(m["lb_loss"] > 0 and m["z_loss"] > 0 for m in metrics), metrics
+    # K3 sends the leaves whose block passes the kernel's lane gate (the
+    # others ride its plain version); K4a decodes every leaf once a payload
+    wf = make_wire_format("quant:8")
+    sends = sum(wf._kernel_ok(wf._block_for(l.shape[-1])) for l in leaves)
+    want = {name: 0 for name in counts}
+    want.update(quantize_2d=sends * steps, dequantize_2d=len(leaves) * (1 + len(shifts)) * steps)
+    assert counts == want, (counts, want)
+    resid = max_shift_residual(torch, tree_leaves, state.params,
+                               {s: state.aux[f"rep{s:+d}"] for s in shifts})
+    log(f"{tag}: invariant rep{{s}} == roll(X, s) for shifts {list(shifts)}: "
+        f"max_abs_diff={resid}")
+    assert resid <= INVARIANT_LIMIT, resid
+    del hist, state
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
 
@@ -1298,6 +1723,7 @@ def main() -> int:
     runs += [phase_plan_run(torch, q, label, fields, steps, launches)
              for label, fields, steps, launches in PLAN_RUNS]
     runs.append(phase_checkpoint(torch, q))
+    runs += [phase_train_families(torch, q, *run) for run in TRAIN_FAMILY_RUNS]
     for counts in runs:
         for name, c in counts.items():
             totals[name] += c
@@ -1314,6 +1740,11 @@ def main() -> int:
     phase_reference(torch, "dcd", "lowrank:2:warm")
     phase_reference(torch, "dcd", "quant:8", topology="full_logn", drop=0.1, n_nodes=8)
     phase_reference_stacked(torch)
+    from repro_torch.configs import ARCH_IDS
+    served = [phase_serve(torch, arch) for arch in ARCH_IDS]
+    log("serve summary: " + json.dumps(served))
+    phase_chunked(torch)
+    phase_families_reference(torch)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": totals[name], "max_abs_err": rec[name]["err"],
                 "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],

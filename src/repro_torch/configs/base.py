@@ -1,20 +1,59 @@
-"""Architecture config schema (dense decoder slice).
+"""Architecture config schema + registry.
 
-A copy of the fields of the JAX package's ``ArchConfig`` that the dense
-decoder path reads, with the same ``vocab_padded``, ``hd`` and ``reduced()``
-arithmetic, so a config built here and one built there have equal shapes.
+The port's own copy of the JAX package's ``configs/base.py``: every field of
+``ArchConfig`` and its specs, with the same ``vocab_padded``, ``hd``,
+``is_encdec``, ``attention_free`` and ``reduced()`` arithmetic, so a config
+built here and one built there have equal shapes.  Every architecture has one
+file in this package defining ``CONFIG`` with its published hyperparameters
+(source cited in the file); ``reduced()`` derives the CPU test variant (<= 2
+layers, d_model <= 256, <= 4 experts) of the same family.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_expert: int
+    capacity_factor: float = 1.25
+    dense_layers: Tuple[int, ...] = (0,)   # layers with a dense FFN instead of MoE
+    d_ff_dense: int = 0                    # width of those dense FFNs
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    d_inner: int
+    d_state: int
+    n_heads: int
+    n_groups: int = 1
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class MLASpec:
+    kv_lora: int = 512
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class FrontendSpec:
+    kind: str            # 'vision' | 'audio': the encoder is a stub, the batch carries embeddings
+    n_tokens: int        # patches / frames
+    dim: int             # embedding dim coming out of the (stubbed) encoder
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                     # only "dense" is ported
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -23,8 +62,15 @@ class ArchConfig:
     vocab: int
     head_dim: Optional[int] = None
     rope_theta: float = 1e4
-    norm: str = "rms"
-    act: str = "swiglu"
+    norm: str = "rms"               # rms | ln
+    act: str = "swiglu"             # swiglu | gelu
+    moe: Optional[MoESpec] = None
+    ssm: Optional[SSMSpec] = None
+    mla: Optional[MLASpec] = None
+    frontend: Optional[FrontendSpec] = None
+    encoder_layers: int = 0         # >0 => encoder-decoder (whisper)
+    hybrid_period: int = 0          # >0 => every period-th layer is the SHARED attn block
+    long_context_window: int = 8192 # ring-buffer window used for long-context decode
     source: str = ""                # citation
 
     @property
@@ -37,13 +83,20 @@ class ArchConfig:
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def reduced(self) -> "ArchConfig":
-        """Tiny same-family variant for CPU tests (2 layers, d_model <= 256)."""
+        """Tiny same-family variant for CPU tests."""
         d = min(self.d_model, 256)
         heads = min(self.n_heads, 4) or 4
         kv = min(self.n_kv_heads, heads) or heads
-        return dataclasses.replace(
-            self,
+        changes = dict(
             n_layers=2,
             d_model=d,
             n_heads=heads,
@@ -52,14 +105,49 @@ class ArchConfig:
             vocab=min(self.vocab, 512),
             head_dim=d // heads,
         )
+        if self.moe:
+            changes["moe"] = dataclasses.replace(
+                self.moe, n_routed=4, n_shared=min(self.moe.n_shared, 1),
+                top_k=2, d_expert=64, d_ff_dense=min(self.moe.d_ff_dense, 256) or 256)
+        if self.ssm:
+            changes["ssm"] = dataclasses.replace(
+                self.ssm, d_inner=2 * d, d_state=16, n_heads=4, chunk=8)
+        if self.mla:
+            changes["mla"] = MLASpec(kv_lora=32, qk_nope=16, qk_rope=8, v_head=16)
+        if self.frontend:
+            # audio frames feed the encoder directly => dim must track d_model
+            dim = d if self.frontend.kind == "audio" else 64
+            changes["frontend"] = dataclasses.replace(self.frontend, n_tokens=8, dim=dim)
+        if self.encoder_layers:
+            changes["encoder_layers"] = 2
+        if self.hybrid_period:
+            changes["hybrid_period"] = 2
+            changes["n_layers"] = 4
+        changes["long_context_window"] = 64
+        return dataclasses.replace(self, **changes)
 
 
-ARCH_IDS = ("granite-3-2b",)
+ARCH_IDS = (
+    "internvl2-76b",
+    "zamba2-7b",
+    "deepseek-moe-16b",
+    "whisper-base",
+    "mistral-large-123b",
+    "deepseek-v2-lite-16b",
+    "codeqwen1.5-7b",
+    "starcoder2-15b",
+    "mamba2-370m",
+    "granite-3-2b",
+)
 
 
 def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
-        raise ValueError(f"unknown or unported arch {arch_id!r}; ported: {ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCH_IDS}

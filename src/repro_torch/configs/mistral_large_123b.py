@@ -1,0 +1,15 @@
+"""Mistral-Large-Instruct-2407 (123B dense) [hf:mistralai/Mistral-Large-Instruct-2407]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mistral-large-123b",
+    family="dense",
+    n_layers=88,
+    d_model=12288,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=28672,
+    vocab=32768,
+    rope_theta=1e6,
+    source="hf:mistralai/Mistral-Large-Instruct-2407",
+)

@@ -7,6 +7,8 @@ returns the port's nested dict of float32 tensors with the same keys.
 the order the wire seeds leaves by.  ``algo_state_from_jax`` carries a
 stacked-reference ``AlgoState`` the same way, and ``dist_state_from_jax``
 the runtime's ``DistState``, so that both packages step from the same state.
+``cache_from_jax`` carries the decode caches, so that one decode step of
+each package can be held against the other.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ import torch
 
 from repro_torch.core.algorithms import AlgoState
 from repro_torch.distributed.decentralized import DistState
+from repro_torch.models.attention import KVCache, MLACache
+from repro_torch.models.encdec import CrossCache
+from repro_torch.models.ssm import SSMCache
 from repro_torch.optim.optimizers import OptState
 from repro_torch.tree import leaf_items, tree_map
 
@@ -64,3 +69,32 @@ def dist_state_from_jax(state: Any, device="cuda") -> DistState:
 
 def leaf_paths(params: Any) -> List[str]:
     return [path for path, _ in leaf_items(params)]
+
+
+def _cache_pos(pos: Any) -> int:
+    """A stacked JAX position (one int32 a layer) -> the port's one host
+    integer; every layer of a cache has the same position."""
+    pos = np.asarray(pos)
+    if pos.size and not (pos == pos.flat[0]).all():
+        raise ValueError(f"layers of one cache at different positions: {pos}")
+    return int(pos.flat[0]) if pos.size else 0
+
+
+def cache_from_jax(caches: Any, device="cuda") -> Any:
+    """The JAX package's decode caches with their leaves as numpy arrays (a
+    dict of ``KVCache``, ``MLACache``, ``SSMCache`` or ``CrossCache``, each
+    leaf stacked on the layer axes) -> the port's, every tensor its own copy
+    on ``device`` with its dtype (bf16 through its raw bits)."""
+    if isinstance(caches, dict):
+        return {k: cache_from_jax(v, device) for k, v in caches.items()}
+    fields = set(getattr(caches, "_fields", ())) or set(vars(caches))
+    if {"c_kv", "k_rope"} <= fields:
+        return MLACache(c_kv=_tensor(caches.c_kv, device), k_rope=_tensor(caches.k_rope, device),
+                        pos=_cache_pos(caches.pos))
+    if {"h", "conv"} <= fields:
+        return SSMCache(h=_tensor(caches.h, device), conv=_tensor(caches.conv, device),
+                        pos=_cache_pos(caches.pos))
+    if "pos" in fields:
+        return KVCache(k=_tensor(caches.k, device), v=_tensor(caches.v, device),
+                       pos=_cache_pos(caches.pos), window=caches.window)
+    return CrossCache(k=_tensor(caches.k, device), v=_tensor(caches.v, device))

@@ -21,14 +21,23 @@ arithmetic: deterministic on a given device (the float ``log``/``cos`` of
 the CPU and the GPU may round differently, so a near-tie can resolve to
 another token across devices), and not threefry: batches differ from the JAX
 package's for the same seed.
+
+For a frontend (VLM patches, audio frames) a batch also carries
+``extra_embeds`` (per_shard, n_tokens, dim): standard normals (Box-Muller on
+PCG-hash uniforms of ``(seed, step, shard, row, index)`` in a stream of their
+own) standing in for the stubbed encoders' output, as the JAX pipeline's
+normal draws do; a vision frontend's patches take ``n_tokens`` of the
+``seq_len`` positions, so its text is that much shorter.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
+
+from repro_torch.configs.base import ArchConfig
 
 from repro_torch.kernels.ref import MASK32, pcg_hash
 
@@ -53,26 +62,37 @@ def _uniform_open(h: torch.Tensor) -> torch.Tensor:
     return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
 
 
+_EMBED_STREAM = 0x5A17E3B1
+
+
+def _normal(h: torch.Tensor) -> torch.Tensor:
+    """Standard normal from a 32-bit hash (Box-Muller on two uniforms)."""
+    u1 = _uniform_open(h)
+    u2 = _uniform_open(pcg_hash(h ^ 0x9E3779B9))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
 def _transition_logits(cfg: DataConfig, tok: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
     """(R, 1) current tokens x (V,) candidates -> (R, V) normal logits / concentration."""
     h = _mix(_mix(torch.full_like(tok, (cfg.seed + 7919) & MASK32), tok), nxt)
-    u1 = _uniform_open(h)
-    u2 = _uniform_open(pcg_hash(h ^ 0x9E3779B9))
-    z = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
-    return z / cfg.markov_concentration
+    return _normal(h) / cfg.markov_concentration
 
 
-def _markov_rows(cfg: DataConfig, step: int, shards: Sequence[int], device) -> torch.Tensor:
-    """(len(shards) * per_shard, seq_len + 1) int64 token walks."""
+def _row_keys(cfg: DataConfig, step: int, shards: Sequence[int], device) -> torch.Tensor:
+    """(len(shards) * per_shard, 1) int64 hash of (seed, step, shard, row)."""
     per = cfg.global_batch // cfg.n_shards
     shard_ids = torch.tensor(list(shards), dtype=torch.int64, device=device)
     rows = torch.arange(per, dtype=torch.int64, device=device)
     base = _mix(torch.full((), cfg.seed & MASK32, dtype=torch.int64, device=device), step & MASK32)
-    key = _mix(_mix(base, shard_ids)[:, None], rows[None, :]).reshape(-1, 1)   # (R, 1)
-    cand = torch.arange(cfg.vocab, dtype=torch.int64, device=device)
+    return _mix(_mix(base, shard_ids)[:, None], rows[None, :]).reshape(-1, 1)
+
+
+def _markov_rows(cfg: DataConfig, key: torch.Tensor, length: int) -> torch.Tensor:
+    """(R, length + 1) int64 token walks, one a row key."""
+    cand = torch.arange(cfg.vocab, dtype=torch.int64, device=key.device)
     tok = pcg_hash(key) % cfg.vocab
     seq = [tok]
-    for pos in range(cfg.seq_len):
+    for pos in range(length):
         noise = _uniform_open(_mix(_mix(key, pos), cand))
         gumbel = -torch.log(-torch.log(noise))
         tok = torch.argmax(_transition_logits(cfg, tok, cand) + gumbel, dim=-1, keepdim=True)
@@ -80,20 +100,43 @@ def _markov_rows(cfg: DataConfig, step: int, shards: Sequence[int], device) -> t
     return torch.cat(seq, dim=1)
 
 
-def _batch(seq: torch.Tensor) -> Dict[str, torch.Tensor]:
-    return {"tokens": seq[..., :-1].contiguous(), "labels": seq[..., 1:].contiguous()}
+def _frontend_embeds(key: torch.Tensor, n_tokens: int, dim: int) -> torch.Tensor:
+    """(R, n_tokens, dim) float32 standard normals, one stream a row key."""
+    idx = torch.arange(n_tokens * dim, dtype=torch.int64, device=key.device)
+    h = _mix(_mix(key ^ _EMBED_STREAM, 0), idx)
+    return _normal(h).reshape(-1, n_tokens, dim)
 
 
-def sample_batch(cfg: DataConfig, step: int, shard: int, *, device="cuda") -> Dict[str, torch.Tensor]:
+def _text_len(cfg: DataConfig, arch: Optional[ArchConfig]) -> int:
+    if arch is not None and arch.frontend is not None and arch.frontend.kind == "vision":
+        return cfg.seq_len - arch.frontend.n_tokens
+    return cfg.seq_len
+
+
+def _batch(cfg: DataConfig, key: torch.Tensor, arch: Optional[ArchConfig],
+           lead: tuple) -> Dict[str, torch.Tensor]:
+    seq = _markov_rows(cfg, key, _text_len(cfg, arch))
+    seq = seq.reshape(lead + seq.shape[1:])
+    out = {"tokens": seq[..., :-1].contiguous(), "labels": seq[..., 1:].contiguous()}
+    if arch is not None and arch.frontend is not None:
+        e = _frontend_embeds(key, arch.frontend.n_tokens, arch.frontend.dim)
+        out["extra_embeds"] = e.reshape(lead + e.shape[1:])
+    return out
+
+
+def sample_batch(cfg: DataConfig, step: int, shard: int, arch: Optional[ArchConfig] = None, *,
+                 device="cuda") -> Dict[str, torch.Tensor]:
     """Deterministic batch of one shard: tokens and next-token labels
-    (per_shard, seq_len) int64."""
+    (per_shard, S_text) int64, and ``extra_embeds`` for a frontend ``arch``."""
     if not 0 <= shard < cfg.n_shards:
         raise ValueError(f"shard {shard} out of range for {cfg.n_shards} shards")
-    return _batch(_markov_rows(cfg, step, [shard], device))
-
-
-def stacked_node_batches(cfg: DataConfig, step: int, *, device="cuda") -> Dict[str, torch.Tensor]:
-    """All shards stacked on a leading node axis: (n_shards, per_shard, seq_len)."""
     per = cfg.global_batch // cfg.n_shards
-    seq = _markov_rows(cfg, step, range(cfg.n_shards), device)
-    return _batch(seq.reshape(cfg.n_shards, per, cfg.seq_len + 1))
+    return _batch(cfg, _row_keys(cfg, step, [shard], device), arch, (per,))
+
+
+def stacked_node_batches(cfg: DataConfig, step: int, arch: Optional[ArchConfig] = None, *,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """All shards stacked on a leading node axis: (n_shards, per_shard, ...)."""
+    per = cfg.global_batch // cfg.n_shards
+    return _batch(cfg, _row_keys(cfg, step, range(cfg.n_shards), device), arch,
+                  (cfg.n_shards, per))

@@ -145,7 +145,7 @@ def run_training(cfg: ArchConfig, tc: TrainConfig, *, device="cuda") -> Dict[str
                                        gamma=tc.gamma, drop=drop)
         for t in range(max(seg_start, start), seg_stop):
             ts = time.perf_counter()
-            batch = stacked_node_batches(dc, t, device=device)
+            batch = stacked_node_batches(dc, t, cfg, device=device)
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             _sync(device)

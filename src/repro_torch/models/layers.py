@@ -1,9 +1,9 @@
 """Shared neural building blocks: plain functions on tensors plus inits.
 
-The port of the JAX package's ``models/layers.py`` (dense decoder slice).
-Compute runs in bf16 with float32 master weights (``layers.py:13``): each
-function casts a weight to the activation dtype at use, and the norms, RoPE
-and the cross-entropy work in float32, as the JAX versions do.
+The port of the JAX package's ``models/layers.py``.  Compute runs in bf16
+with float32 master weights (``layers.py:13``): each function casts a
+weight to the activation dtype at use, and the norms, RoPE and the
+cross-entropy work in float32, as the JAX versions do.
 """
 from __future__ import annotations
 
@@ -30,13 +30,24 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``jnp.einsum``: operands of different float dtypes are promoted to
+    their common dtype first (torch's einsum raises instead)."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
 def embed_init(gen: torch.Generator, vocab: int, d: int, *, device) -> torch.Tensor:
     return torch.randn((vocab, d), generator=gen, device=device,
                        dtype=torch.float32).mul_(0.02)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table.to(COMPUTE_DTYPE)[tokens]
+    """``table.astype(bf16)[tokens]``, gathering the rows before the cast
+    (the same values, without casting the whole table)."""
+    return table[tokens].to(COMPUTE_DTYPE)
 
 
 def rmsnorm_init(d: int, *, device, lead: tuple = ()) -> torch.Tensor:
@@ -49,7 +60,19 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (h * g).to(x.dtype)
 
 
-# ----------------------------------------------------------------- MLP
+def layernorm_init(d: int, *, device, lead: tuple = ()) -> Params:
+    return {"g": torch.ones(lead + (d,), dtype=torch.float32, device=device),
+            "b": torch.zeros(lead + (d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(x: torch.Tensor, p: Params, eps: float = 1e-5) -> torch.Tensor:
+    h = x.to(torch.float32)
+    mu = torch.mean(h, dim=-1, keepdim=True)
+    var = torch.mean((h - mu) ** 2, dim=-1, keepdim=True)
+    return ((h - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
+
+
+# ----------------------------------------------------------------- MLPs
 
 def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *, device, lead: tuple = ()) -> Params:
     # the draw order follows the JAX key split (wi, wg, wo); the values differ
@@ -62,6 +85,20 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int, *, device, lead: tuple 
 
 def swiglu(x: torch.Tensor, p: Params) -> torch.Tensor:
     return dense(F.silu(dense(x, p["wg"])) * dense(x, p["wi"]), p["wo"])
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, *, device, lead: tuple = ()) -> Params:
+    return {"wi": dense_init(gen, d, d_ff, device=device, lead=lead),
+            "wo": dense_init(gen, d_ff, d, device=device, lead=lead)}
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return dense(gelu(dense(x, p["wi"])), p["wo"])
 
 
 # ----------------------------------------------------------------- RoPE
@@ -81,6 +118,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, *, device) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    return _sinusoid(pos, d)
+
+
+def _sinusoid(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Rows ``[sin(p * div), cos(p * div)]`` interleaved, for float32
+    positions ``pos`` of shape (S, 1)."""
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32, device=pos.device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
 
 
 # ----------------------------------------------------------------- loss

@@ -1,24 +1,41 @@
-"""Dense decoder-only language model.
+"""Decoder-only language models: dense / MoE / SSM / hybrid / VLM backbone.
 
-The port of the dense path of the JAX package's ``models/lm.py``.  Layers are
-stacked along a leading layer axis (``params["blocks"][...][l]``), exactly
-like the JAX tree, and the forward walks that axis in a Python loop where
-JAX scans it.  Weights stay float32; every matrix is cast to bf16 at use.
+The port of the JAX package's ``models/lm.py``.  Layers are stacked along a
+leading layer axis (``params["blocks"][...][l]``), exactly like the JAX tree,
+and the forward walks that axis in a Python loop where JAX scans it.  The
+hybrid (Zamba2) walks periods of Mamba layers (``params["pm"]`` with leading
+axes ``(n_periods, per_period)``), each followed by ONE shared attention
+block whose parameters are reused at every application (true parameter
+sharing: its gradient is the sum over its applications); each application
+still owns its own KV cache.  Weights stay float32; the forward casts every
+float32 leaf of rank >= 2 of a layer to bf16 at the top of the layer
+(``_cast_weights``, as JAX does), and the decode step casts each matrix at
+use.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
     Params,
     chunked_softmax_xent,
+    dense,
     dense_init,
     embed,
     embed_init,
+    gelu,
+    gelu_mlp,
+    gelu_mlp_init,
+    layernorm,
+    layernorm_init,
     rmsnorm,
     rmsnorm_init,
     swiglu,
@@ -26,58 +43,343 @@ from repro_torch.models.layers import (
 )
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.norm != "rms" or cfg.act != "swiglu":
-        raise NotImplementedError(
-            f"only the dense rms/swiglu decoder is ported, got {cfg.family}/{cfg.norm}/{cfg.act}")
+def _norm_init(cfg: ArchConfig, d: int, *, device, lead: tuple = ()):
+    return rmsnorm_init(d, device=device, lead=lead) if cfg.norm == "rms" \
+        else layernorm_init(d, device=device, lead=lead)
+
+
+def _norm(cfg: ArchConfig, x, p):
+    return rmsnorm(x, p) if cfg.norm == "rms" else layernorm(x, p)
+
+
+def _mlp_init(cfg: ArchConfig, gen, d: int, d_ff: int, *, device, lead: tuple = ()):
+    init = swiglu_init if cfg.act == "swiglu" else gelu_mlp_init
+    return init(gen, d, d_ff, device=device, lead=lead)
+
+
+def _mlp(cfg: ArchConfig, x, p):
+    return swiglu(x, p) if cfg.act == "swiglu" else gelu_mlp(x, p)
+
+
+# ----------------------------------------------------------------- blocks
+
+def _attn_init(cfg: ArchConfig, gen, *, device, lead: tuple) -> Params:
+    if cfg.mla:
+        m = cfg.mla
+        return attn.mla_init(gen, cfg.d_model, cfg.n_heads, kv_lora=m.kv_lora,
+                             qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
+                             device=device, lead=lead)
+    return attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                         device=device, lead=lead)
+
+
+def _attn_fwd(cfg: ArchConfig, x, p) -> torch.Tensor:
+    if cfg.mla:
+        m = cfg.mla
+        return attn.mla_forward(x, p, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
+                                qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
+                                theta=cfg.rope_theta)
+    return attn.gqa_forward(x, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                            head_dim=cfg.hd, theta=cfg.rope_theta)
+
+
+def _block_init(cfg: ArchConfig, gen, kind: str, *, device, lead: tuple) -> Params:
+    """kind: 'attn_dense' | 'attn_dense_moe0' | 'attn_moe' | 'ssm'."""
+    d = cfg.d_model
+    if kind == "ssm":
+        s = cfg.ssm
+        return {"ln": _norm_init(cfg, d, device=device, lead=lead),
+                "mixer": ssm_lib.ssm_init(gen, d, d_inner=s.d_inner, d_state=s.d_state,
+                                          n_heads=s.n_heads, n_groups=s.n_groups,
+                                          device=device, lead=lead)}
+    p = {"ln1": _norm_init(cfg, d, device=device, lead=lead),
+         "attn": _attn_init(cfg, gen, device=device, lead=lead),
+         "ln2": _norm_init(cfg, d, device=device, lead=lead)}
+    if kind == "attn_moe":
+        m = cfg.moe
+        p["ffn"] = moe_lib.moe_init(gen, d, m.d_expert, m.n_routed, m.n_shared,
+                                    device=device, lead=lead)
+    else:
+        d_ff = cfg.moe.d_ff_dense if (cfg.moe and kind == "attn_dense_moe0") else cfg.d_ff
+        p["ffn"] = _mlp_init(cfg, gen, d, d_ff, device=device, lead=lead)
+    return p
+
+
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"lb_loss": z, "z_loss": z}
+
+
+def _moe(cfg: ArchConfig, x, p):
+    m = cfg.moe
+    return moe_lib.moe_forward(x, p, n_routed=m.n_routed, n_shared=m.n_shared,
+                               top_k=m.top_k, capacity_factor=m.capacity_factor)
+
+
+def _block_fwd(cfg: ArchConfig, h, p, kind: str) -> Tuple[torch.Tensor, Dict]:
+    aux = _zero_aux(h.device)
+    if kind == "ssm":
+        s = cfg.ssm
+        h = h + ssm_lib.mamba_forward(_norm(cfg, h, p["ln"]), p["mixer"],
+                                      d_inner=s.d_inner, d_state=s.d_state,
+                                      n_heads=s.n_heads, n_groups=s.n_groups, chunk=s.chunk)
+        return h, aux
+    h = h + _attn_fwd(cfg, _norm(cfg, h, p["ln1"]), p["attn"])
+    x = _norm(cfg, h, p["ln2"])
+    if kind == "attn_moe":
+        y, aux = _moe(cfg, x, p["ffn"])
+    else:
+        y = _mlp(cfg, x, p["ffn"])
+    return h + y, aux
+
+
+# ----------------------------------------------------------------- layer stacks
+
+def _layer_kind(cfg: ArchConfig) -> str:
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.moe:
+        return "attn_moe"
+    return "attn_dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridLayout:
+    n_periods: int        # full (period-1 mamba + shared attn) groups
+    per_period: int       # mamba layers per period
+    tail: int             # trailing mamba layers
+
+    @staticmethod
+    def of(cfg: ArchConfig) -> "HybridLayout":
+        per = cfg.hybrid_period - 1
+        n_p = cfg.n_layers // cfg.hybrid_period
+        tail = cfg.n_layers - n_p * cfg.hybrid_period
+        return HybridLayout(n_periods=n_p, per_period=per, tail=tail)
 
 
 def lm_init(cfg: ArchConfig, seed: int, *, device) -> Params:
     """Random float32 parameters from ``seed`` (a torch.Generator on
     ``device``), with the JAX package's keys, shapes and init scales; the
     values are torch's, not threefry's."""
-    _check_ported(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    d, L = cfg.d_model, (cfg.n_layers,)
-    return {
+    d = cfg.d_model
+    p: Params = {
+        # padded vocab: embedding rows and LM head columns
         "embed": embed_init(gen, cfg.vocab_padded, d, device=device),
-        "final_ln": rmsnorm_init(d, device=device),
+        "final_ln": _norm_init(cfg, d, device=device),
         "lm_head": dense_init(gen, d, cfg.vocab_padded, device=device, scale=0.02),
-        "blocks": {
-            "ln1": rmsnorm_init(d, device=device, lead=L),
-            "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                                  device=device, lead=L),
-            "ln2": rmsnorm_init(d, device=device, lead=L),
-            "ffn": swiglu_init(gen, d, cfg.d_ff, device=device, lead=L),
-        },
     }
+    if cfg.frontend and cfg.frontend.kind == "vision":
+        p["proj"] = {"w1": dense_init(gen, cfg.frontend.dim, d, device=device),
+                     "w2": dense_init(gen, d, d, device=device)}
+    if cfg.hybrid_period:
+        lay = HybridLayout.of(cfg)
+        p["pm"] = _block_init(cfg, gen, "ssm", device=device,
+                              lead=(lay.n_periods, lay.per_period))
+        if lay.tail:
+            p["tail"] = _block_init(cfg, gen, "ssm", device=device, lead=(lay.tail,))
+        p["shared_attn"] = {
+            "ln1": _norm_init(cfg, d, device=device),
+            "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, device=device),
+            "ln2": _norm_init(cfg, d, device=device),
+            "mlp": _mlp_init(cfg, gen, d, cfg.d_ff, device=device)}
+        return p
+    kind = _layer_kind(cfg)
+    if cfg.moe and cfg.moe.dense_layers:
+        n_dense = len(cfg.moe.dense_layers)
+        p["blocks0"] = _block_init(cfg, gen, "attn_dense_moe0", device=device, lead=(n_dense,))
+        p["blocks"] = _block_init(cfg, gen, kind, device=device, lead=(cfg.n_layers - n_dense,))
+    else:
+        p["blocks"] = _block_init(cfg, gen, kind, device=device, lead=(cfg.n_layers,))
+    return p
 
 
-def _layer(blocks: Params, l: int) -> Params:
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l] for k, v in blocks.items()}
+def _layer(tree: Any, idx) -> Any:
+    """One layer's parameters (or cache tensors) of a stacked tree."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, idx) for k, v in tree.items()}
+    return tree[idx]
 
 
-def _block_fwd(cfg: ArchConfig, h: torch.Tensor, p: Params) -> torch.Tensor:
-    h = h + attn.gqa_forward(rmsnorm(h, p["ln1"]), p["attn"], n_heads=cfg.n_heads,
+def _n_stacked(tree: Any, axis: int = 0) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[axis]
+
+
+def _cast_weights(lp: Any) -> Any:
+    """Cast a layer's float32 leaves of rank >= 2 to bf16 (numerics
+    unchanged: ``dense`` casts at use anyway).  1-D parameters (norm gains,
+    SSM decay vectors) stay float32; the SSM's ``conv_w`` is cast."""
+    if isinstance(lp, dict):
+        return {k: _cast_weights(v) for k, v in lp.items()}
+    return lp.to(COMPUTE_DTYPE) if (lp.dim() >= 2 and lp.dtype == torch.float32) else lp
+
+
+def _run_blocks(cfg: ArchConfig, h, stacked: Params, kind: str):
+    """Walk a stack of layers; returns h and the summed aux losses."""
+    lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
+    for l in range(_n_stacked(stacked)):
+        h, aux = _block_fwd(cfg, h, _cast_weights(_layer(stacked, l)), kind)
+        lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
+    return h, lb, zl
+
+
+def _shared_attn_fwd(cfg: ArchConfig, h, sa: Params):
+    h = h + attn.gqa_forward(_norm(cfg, h, sa["ln1"]), sa["attn"], n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta)
-    return h + swiglu(rmsnorm(h, p["ln2"]), p["ffn"])
+    return h + _mlp(cfg, _norm(cfg, h, sa["ln2"]), sa["mlp"])
 
 
-def lm_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, d) in bf16."""
-    _check_ported(cfg)
+def lm_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+              extra_embeds: Optional[torch.Tensor] = None):
+    """Token ids (+ optional frontend embeddings, prepended) -> final hidden
+    states (bf16) and the summed aux losses."""
     h = embed(tokens, params["embed"])
-    for l in range(params["blocks"]["ln1"].shape[0]):
-        h = _block_fwd(cfg, h, _layer(params["blocks"], l))
-    return rmsnorm(h, params["final_ln"])
+    if extra_embeds is not None:
+        e = extra_embeds.to(COMPUTE_DTYPE)
+        if "proj" in params:
+            e = dense(gelu(dense(e, params["proj"]["w1"])), params["proj"]["w2"])
+        h = torch.cat([e, h], dim=1)
+    lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.hybrid_period:
+        lay = HybridLayout.of(cfg)
+        sa = _cast_weights(params["shared_attn"])
+        for i in range(lay.n_periods):
+            h, l2, z2 = _run_blocks(cfg, h, _layer(params["pm"], i), "ssm")
+            lb, zl = lb + l2, zl + z2
+            h = _shared_attn_fwd(cfg, h, sa)
+        if lay.tail:
+            h, l2, z2 = _run_blocks(cfg, h, params["tail"], "ssm")
+            lb, zl = lb + l2, zl + z2
+    else:
+        if "blocks0" in params:
+            # the dense first layers' aux (zeros) is not added, as in JAX
+            h, _, _ = _run_blocks(cfg, h, params["blocks0"], "attn_dense_moe0")
+        h, lb, zl = _run_blocks(cfg, h, params["blocks"], _layer_kind(cfg))
+    h = _norm(cfg, h, params["final_ln"])
+    return h, {"lb_loss": lb, "z_loss": zl}
 
 
-def lm_loss(cfg: ArchConfig, params: Params,
-            batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """batch: tokens (B, S), labels (B, S), optional loss_mask.  The dense
-    model has no auxiliary losses, so the loss is the cross-entropy."""
-    h = lm_hidden(cfg, params, batch["tokens"])
-    xent = chunked_softmax_xent(h, params["lm_head"], batch["labels"], batch.get("loss_mask"))
-    zero = torch.zeros((), dtype=torch.float32, device=xent.device)
-    return xent, {"xent": xent, "lb_loss": zero, "z_loss": zero}
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
+    """batch: tokens (B,S_text), labels (B,S_text), optional
+    extra_embeds/loss_mask.  The frontend positions carry no loss."""
+    extra = batch.get("extra_embeds")
+    h, aux = lm_hidden(cfg, params, batch["tokens"], extra)
+    n_front = 0 if extra is None else extra.shape[1]
+    xent = chunked_softmax_xent(h[:, n_front:], params["lm_head"], batch["labels"],
+                                batch.get("loss_mask"))
+    loss = xent + 0.01 * aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return loss, {"xent": xent, **aux}
+
+
+def lm_logits(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
+              extra_embeds: Optional[torch.Tensor] = None):
+    h, _ = lm_hidden(cfg, params, tokens, extra_embeds)
+    return dense(h, params["lm_head"])[..., : cfg.vocab]
+
+
+# ----------------------------------------------------------------- decode
+
+def lm_init_cache(cfg: ArchConfig, B: int, capacity: int, window: Optional[int] = None, *,
+                  device) -> Dict[str, Any]:
+    """Stacked decode caches (leading axes = the layer axes of the params)."""
+    def attn_cache(lead):
+        if cfg.mla:
+            m = cfg.mla
+            return attn.mla_init_cache(B, capacity, m.kv_lora, m.qk_rope, device=device,
+                                       lead=lead)
+        return attn.gqa_init_cache(B, capacity, cfg.n_kv_heads, cfg.hd, window=window,
+                                   device=device, lead=lead)
+
+    def ssm_cache(lead):
+        s = cfg.ssm
+        return ssm_lib.mamba_init_cache(B, d_inner=s.d_inner, d_state=s.d_state,
+                                        n_heads=s.n_heads, n_groups=s.n_groups,
+                                        device=device, lead=lead)
+
+    if cfg.hybrid_period:
+        lay = HybridLayout.of(cfg)
+        caches = {"pm": ssm_cache((lay.n_periods, lay.per_period)),
+                  "attn": attn_cache((lay.n_periods,))}
+        if lay.tail:
+            caches["tail"] = ssm_cache((lay.tail,))
+        return caches
+    make = ssm_cache if cfg.family == "ssm" else attn_cache
+    n_dense = len(cfg.moe.dense_layers) if (cfg.moe and cfg.moe.dense_layers) else 0
+    caches = {"blocks": make((cfg.n_layers - n_dense,))}
+    if n_dense:
+        caches["blocks0"] = make((n_dense,))
+    return caches
+
+
+def _layer_cache(cache, idx):
+    """One layer's view of a stacked cache: its tensors indexed by ``idx``
+    (writes land in the stack), the position shared."""
+    return dataclasses.replace(cache, **{f.name: getattr(cache, f.name)[idx]
+                                         for f in dataclasses.fields(cache)
+                                         if isinstance(getattr(cache, f.name), torch.Tensor)})
+
+
+def _attn_decode(cfg: ArchConfig, x, cache, p):
+    if cfg.mla:
+        m = cfg.mla
+        return attn.mla_decode(x, cache, p, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
+                               qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
+                               theta=cfg.rope_theta)
+    return attn.gqa_decode(x, cache, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                           head_dim=cfg.hd, theta=cfg.rope_theta)
+
+
+def _block_decode(cfg: ArchConfig, x, cache, p, kind: str):
+    """One layer's decode step against its cache (written in place)."""
+    if kind == "ssm":
+        s = cfg.ssm
+        y, _ = ssm_lib.mamba_decode(_norm(cfg, x, p["ln"]), cache, p["mixer"],
+                                    d_inner=s.d_inner, d_state=s.d_state,
+                                    n_heads=s.n_heads, n_groups=s.n_groups)
+        return x + y
+    y, _ = _attn_decode(cfg, _norm(cfg, x, p["ln1"]), cache, p["attn"])
+    x = x + y
+    z = _norm(cfg, x, p["ln2"])
+    y = _moe(cfg, z, p["ffn"])[0] if kind == "attn_moe" else _mlp(cfg, z, p["ffn"])
+    return x + y
+
+
+def _advanced(cache):
+    return dataclasses.replace(cache, pos=cache.pos + 1)
+
+
+@torch.no_grad()
+def lm_decode_step(cfg: ArchConfig, params: Params, caches: Dict[str, Any],
+                   tokens: torch.Tensor):
+    """One decode step: tokens (B,1) -> logits (B,1,V) and the caches with
+    the position advanced (their tensors written in place)."""
+    x = embed(tokens, params["embed"])
+
+    def run(x, stacked_p, cache, kind, lead=()):
+        for l in range(_n_stacked(stacked_p, len(lead))):
+            idx = lead + (l,)
+            x = _block_decode(cfg, x, _layer_cache(cache, idx), _layer(stacked_p, idx), kind)
+        return x
+
+    if cfg.hybrid_period:
+        lay = HybridLayout.of(cfg)
+        sa, at = params["shared_attn"], caches["attn"]
+        for i in range(lay.n_periods):
+            x = run(x, params["pm"], caches["pm"], "ssm", (i,))
+            y, _ = attn.gqa_decode(_norm(cfg, x, sa["ln1"]), _layer_cache(at, i), sa["attn"],
+                                   n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+                                   theta=cfg.rope_theta)
+            x = x + y
+            x = x + _mlp(cfg, _norm(cfg, x, sa["ln2"]), sa["mlp"])
+        if lay.tail:
+            x = run(x, params["tail"], caches["tail"], "ssm")
+    else:
+        if "blocks0" in params:
+            x = run(x, params["blocks0"], caches["blocks0"], "attn_dense_moe0")
+        x = run(x, params["blocks"], caches["blocks"], _layer_kind(cfg))
+    x = _norm(cfg, x, params["final_ln"])
+    logits = dense(x, params["lm_head"])[..., : cfg.vocab]
+    return logits, {k: _advanced(c) for k, c in caches.items()}

@@ -509,3 +509,78 @@ def test_wire_quant8_and_dense_decode_on_card_match_cpu(cuda, spec):
     wire.decode_axpy_(p_gpu, acc, 2.0, -1.0)
     wire.decode_axpy_(p_cpu, a_cpu, 2.0, -1.0)
     assert ref.same_bits(acc.cpu(), a_cpu)
+
+
+# ------------------------------------------------------------ model families
+
+def _greedy_decode(model, cfg, params, prompt, frames, device, forced=None, steps=12):
+    """Greedy decode from ``prompt`` (or fed ``forced`` tokens); returns the
+    (B, steps, V) float logits and the (B, steps) argmax tokens on the CPU."""
+    from repro_torch.models import encdec as ed
+
+    caches = model.init_cache(prompt.shape[0], steps + 1, device=device)
+    if frames is not None:
+        caches = ed.encdec_prefill_cross(cfg, params, frames.to(device), caches)
+    cur, logits = prompt.to(device), []
+    for t in range(steps):
+        lg, caches = model.decode_step(params, caches, cur)
+        logits.append(lg[:, 0].float().cpu())
+        cur = lg.argmax(-1) if forced is None else forced[:, t:t + 1].to(device)
+    out = torch.stack(logits, 1)
+    return out, out.argmax(-1)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-76b", "zamba2-7b", "deepseek-moe-16b",
+                                  "whisper-base", "mistral-large-123b", "deepseek-v2-lite-16b",
+                                  "codeqwen1.5-7b", "starcoder2-15b", "mamba2-370m",
+                                  "granite-3-2b"])
+def test_family_decode_on_card_matches_cpu(cuda, arch):
+    """Each family at its reduced width, the same params and prompt: the card
+    fed the CPU's greedy tokens gives the CPU's logits within 5e-2 (bf16,
+    as the CPU tests hold the port to JAX), and the CPU's token wherever the
+    CPU's top two logits are more than 0.1 apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    prompt = torch.randint(2, cfg.vocab, (2, 1), generator=gen)
+    frames = torch.randn((2, cfg.frontend.n_tokens, cfg.frontend.dim), generator=gen) \
+        if cfg.is_encdec else None
+    lc, tc = _greedy_decode(model, cfg, params, prompt, frames, "cpu")
+    card = tree_map(lambda t: t.to(cuda), params)
+    lg, tg = _greedy_decode(model, cfg, card, prompt, frames, cuda, forced=tc)
+    top2 = lc.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 0.1
+    assert float((lg - lc).abs().max()) <= 5e-2
+    assert torch.equal(tg[sure], tc[sure])
+
+
+def test_chunked_prefill_on_card_matches_unchunked(cuda, monkeypatch):
+    """Reduced granite at S 4096: the prefill through ``_sdpa_chunked`` and
+    through the unchunked ``_sdpa`` agree within 5e-2 per 0.3 of the logits'
+    std (bf16, ``chip_smoke.DECODE_REL``); ``_sdpa_chunked`` on the card
+    equals the CPU's in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models.api import build_model
+
+    cfg = get_config("granite-3-2b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (1, attn.FLASH_THRESHOLD), device=cuda)
+    with torch.no_grad():
+        chunked = model.prefill(params, {"tokens": toks}).float()
+        monkeypatch.setattr(attn, "FLASH_THRESHOLD", attn.FLASH_THRESHOLD + 1)
+        plain = model.prefill(params, {"tokens": toks}).float()
+    assert float((chunked - plain).abs().max()) <= 5e-2 / 0.3 * float(plain.std())
+    g = torch.Generator()
+    g.manual_seed(5)
+    q, k, v = (torch.randn((2, 37, n, 8), generator=g) for n in (4, 2, 2))
+    want = attn._sdpa_chunked(q, k, v, window=5, chunk=8)
+    got = attn._sdpa_chunked(q.to(cuda), k.to(cuda), v.to(cuda), window=5, chunk=8).cpu()
+    assert float((got - want).abs().max()) <= 1e-5

@@ -28,7 +28,12 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    their rank-2 ``lm_head`` times stand beside the one PyTorch call that
    computes the same function (``torch.bmm``, ``torch.baddbmm``).  K1 on a
    row holding a NaN: NaN scale, the row's other codes bit-equal, an all-NaN
-   decode (K4b and K2).  For the 8-bit and dense-decode kernels: K3 (8
+   decode (K4b and K2).  K1, K3 and K6 random-k (p 0.05 and 0.25, and at
+   512 and 2048 columns) with a counter offset, at a rank's folds (one node's
+   rows of the ``lm_head`` leaf of 4 stacked nodes): each node's rows at
+   offset ``i*rows*cols`` equal those rows of the whole fold and the plain
+   version, and an offset that wraps past 2^32 too.  For the 8-bit and
+   dense-decode kernels: K3 (8
    bits, with K4a) and K4b (4 bits) at the same ``lm_head``, ``wk`` and
    ragged folds as K1, K4a and K4b also at block 32 (the quickstart's), K3 on
    a NaN row; K6b at the ``sparse`` ``lm_head`` fold (p = 0.25 randk, k = 32,
@@ -108,6 +113,18 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    both ways.
 12. families — each family at its ``reduced()`` width: the card against the
    CPU, 16 greedy decode steps from the same params and prompts.
+13. ranks (run after the reference phase, before serve) — the rank-per-node
+   runtime: 4 processes, one gossip node each, share the card over gloo
+   (NCCL refuses two ranks on one GPU), each holding its node's slice of
+   granite-3-2b at published widths (1 layer), ring, ``TrainConfig``
+   defaults: DCD ``quant:4`` 3 steps (the main path), D-PSGD 2 steps, CHOCO
+   ``sparse:0.05:randk`` 2 steps.  Per run and rank: step time (host clock,
+   each step ending in a synchronize and a barrier), exchange time (staging
+   and ``batch_isend_irecv``), metric time, bytes sent by label, launches (12
+   sends and 36 receives a step on every rank).  After the steps one more
+   exchange shows ``rep{s}`` (``hat{s}``) equal to node ``(i - s)``'s X
+   (hat_self) exactly; each rank's DCD params are held to a stacked n-4 run
+   on the card (``RANK_STACKED_ATOL``, bit-equality logged).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -1287,6 +1304,206 @@ def phase_reference_stacked(torch) -> None:
     assert dl <= 1e-3 and rel <= 0.2, (dl, rel)
 
 
+# ------------------------------------------------------------ ranks
+
+RANKS = 4
+# one node's rows of the lm_head leaf of RANKS stacked nodes (49408 x 2048):
+# (kernel, label, rows a node, cols, encode keywords); K6 also at the fold
+# widths of its register (512) and shared-memory (2048) paths
+OFFSET_FOLDS = (("quantize_pack_2d", "lm_head", 98816, 1024, dict(bits=4)),
+                ("quantize_2d", "lm_head", 98816, 1024, dict(bits=8)),
+                ("sparse_select_pack_2d", "lm_head", 790528, 128, dict(p=0.05, mode="randk")),
+                ("sparse_select_pack_2d", "lm_head", 790528, 128, dict(p=0.25, mode="randk")),
+                ("sparse_select_pack_2d", "w512", 4096, 512, dict(p=0.05, mode="randk")),
+                ("sparse_select_pack_2d", "w2048", 1024, 2048, dict(p=0.05, mode="randk")))
+
+
+def phase_kernel_offsets(torch, q, ref, rec: dict, device="cuda") -> None:
+    """K1, K3 and K6 random-k with a counter offset, at a rank's folds: node
+    ``i``'s rows encoded at offset ``i*rows*cols`` equal those rows of the
+    whole fold's encode and the plain version at that offset; an offset that
+    wraps past 2^32 inside the fold equals the plain version too."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1357)
+    seed = 0x0FF5E7
+    for name, label, rows, cols, kw in OFFSET_FOLDS:
+        kernel, plain = getattr(q, name), getattr(ref, f"{name}_ref")
+        x = torch.randn((RANKS * rows, cols), generator=gen, device=dev) * 0.02
+        x[0].zero_()
+        x[1, :7] = -0.0
+        whole = kernel(x, seed, **kw)
+        what = f"{rows}x{cols} {kw}"
+        for i in range(RANKS):
+            part = x[i * rows:(i + 1) * rows]
+            got = kernel(part, seed, offset=i * rows * cols, **kw)
+            torch.cuda.synchronize()
+            check(ref, rec, name, f"{label} node {i}", got,
+                  tuple(w[i * rows:(i + 1) * rows] for w in whole),
+                  f"{what}, offset {i * rows * cols} against the whole fold's rows")
+            check(ref, rec, name, f"{label} node {i}", got,
+                  plain(part, seed, offset=i * rows * cols, **kw), f"{what}, plain, same offset")
+            del got
+        wrap = 2**32 - (rows // 2) * cols - 3
+        part = x[:rows]
+        check(ref, rec, name, label, kernel(part, seed, offset=wrap, **kw),
+              plain(part, seed, offset=wrap, **kw), f"{what}, offset {wrap} wraps past 2^32")
+        del x, whole, part
+        torch.cuda.empty_cache()
+
+
+# (algo, wire, steps, {kernel: launches a step on every rank}); the other
+# kernels launch none.  A rank sends each of the 12 leaves once a step and
+# decodes it into its params and its two replicas (or hats).
+RANK_RUNS = (
+    ("dcd", "quant:4", 3, {"quantize_pack_2d": 12, "unpack_dequant_axpy_2d": 36}),
+    ("dpsgd", None, 2, {}),
+    ("choco", "sparse:0.05:randk", 2, {"sparse_select_pack_2d": 12,
+                                      "sparse_scatter_axpy_2d": 36}),
+)
+# algo -> (what a rank's shifted copies track, their prefix), as INVARIANTS
+RANK_INVARIANTS = {"dcd": (None, "rep"), "choco": ("hat_self", "hat")}
+
+
+def rank_train_config(algo: str, wire, steps: int):
+    from repro_torch.launch.train import TrainConfig
+
+    return TrainConfig(arch="granite-3-2b", algo=algo, wire=wire or "quant:8", gamma=0.5,
+                       topology="ring", n_nodes=RANKS, steps=steps, log_every=1, reduced=False)
+
+
+def _rank_worker(group, cfg, runs, ref_dir) -> list:
+    """One rank of the ranks phase: each run of ``runs`` through
+    ``run_training(group=)``, its launch counts and transport stats; then
+    one more exchange of X (or hat_self) against the rank's replicas (or
+    hats), and the params against the stacked run's node slice."""
+    import torch
+
+    from repro_torch.distributed.transport import RankTransport
+    from repro_torch.kernels import quant as q
+    from repro_torch.launch.train import run_training
+    from repro_torch.tree import leaf_items, tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for algo, wire, steps, _ in runs:
+        tc = rank_train_config(algo, wire, steps)
+        q.reset_launch_counts()
+        group.stats.reset()
+        on_card = group.device.type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(group.device)
+        hist = run_training(cfg, tc, group=group)
+        counts = q.launch_counts()
+        stats = {"sent": dict(group.stats.sent), "seconds": dict(group.stats.seconds)}
+        state = hist["state"]
+        rec = {"algo": algo, "wire": wire, "losses": hist["losses"], "step_s": hist["step_s"],
+               "consensus": hist["consensus"], "counts": counts, "stats": stats,
+               "peak": torch.cuda.max_memory_allocated(group.device) if on_card else 0}
+        if algo in RANK_INVARIANTS:
+            base_key, prefix = RANK_INVARIANTS[algo]
+            base = tree_leaves(state.params if base_key is None else state.aux[base_key])
+            tp, worst = RankTransport(group), 0.0
+            for s in (-1, 1):
+                for mine, copy in zip(base, tree_leaves(state.aux[f"{prefix}{s:+d}"])):
+                    theirs = tp.exchange({"x": mine}, (s,), label="check")[s]["x"]
+                    worst = max(worst, (theirs - copy).abs().max().item())
+            rec["invariant"] = worst
+        want = ref_dir / f"{algo}_node{group.rank}.pt"
+        if want.exists():
+            ref_params = torch.load(want, map_location=group.device)
+            diffs = [(leaf[0] - ref_params[path]).abs().max().item()
+                     for path, leaf in leaf_items(state.params)]
+            rec["vs_stacked"] = (max(diffs), all(torch.equal(leaf[0], ref_params[path])
+                                                 for path, leaf in leaf_items(state.params)))
+            del ref_params
+        out.append(rec)
+        del hist, state
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_ranks(torch, q, cfg=None, device="cuda") -> dict:
+    """RANKS processes, one gossip node each, all on the one card over gloo
+    (NCCL refuses two ranks on one GPU), each holding its node's slice of
+    granite-3-2b at published widths (1 layer): DCD ``quant:4`` (the main
+    path), D-PSGD and CHOCO ``sparse:0.05:randk`` (K6 with a non-zero counter
+    offset), ring, the TrainConfig defaults otherwise.  A stacked run of DCD
+    ``quant:4`` at n RANKS on the card first: its node slices, saved under
+    ``build/``, are what each rank's params are held to.  Logs per run and
+    rank the step, exchange and metric times, bytes by label and launches;
+    asserts the launches, ``rep{s}`` (``hat{s}``) equal to node ``(i - s)``'s
+    X (hat_self) exactly, and the params against the stacked run's."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.tree import leaf_items
+
+    cfg = cfg or dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
+    ref_dir = ROOT / "build" / "chip_smoke_ranks"
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    ref_dir.mkdir(parents=True)
+    log(f"ranks: {RANKS} processes, one gossip node each, share one {device} device over "
+        f"gloo (this machine has one GPU, and NCCL refuses to put two ranks on one GPU); "
+        f"each stages its containers through pinned host memory and loopback TCP")
+    stacked = train_mod.run_training(cfg, rank_train_config("dcd", "quant:4", 3), device=device)
+    for i in range(RANKS):
+        torch.save({path: leaf[i].cpu() for path, leaf in leaf_items(stacked["state"].params)},
+                   ref_dir / f"dcd_node{i}.pt")
+    log(f"ranks: stacked dcd quant:4 at n {RANKS}: losses {stacked['losses']} step_s "
+        f"{[round(x, 4) for x in stacked['step_s']]}")
+    del stacked
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    per_rank = spawn_ranks(_rank_worker, RANKS, "gloo", cfg, RANK_RUNS, ref_dir, device=device,
+                           timeout_s=900)
+    log(f"ranks: {RANKS} ranks ran {len(RANK_RUNS)} runs in {time.perf_counter() - t0:.1f} s, "
+        f"process start-up included")
+    totals = {}
+    for ri, (algo, wire, steps, per_step) in enumerate(RANK_RUNS):
+        tag = f"{algo} {wire or 'full precision'}"
+        for rank, runs in enumerate(per_rank):
+            r = runs[ri]
+            st = r["stats"]
+            exch = sum(v for k, v in st["seconds"].items() if k in ("wire", "dense"))
+            log(f"ranks {tag} rank {rank}: step_s={[round(x, 4) for x in r['step_s']]} "
+                f"exchange_s={exch:.4f} ({exch / steps:.4f} a step) "
+                f"metric_s={st['seconds'].get('metric', 0.0):.4f} sent_bytes={st['sent']} "
+                f"({ {k: v // steps for k, v in st['sent'].items()} } a step) "
+                f"peak_memory_allocated={r['peak']} B launches "
+                f"{ {k: v for k, v in r['counts'].items() if v} }")
+            assert all(math.isfinite(v) for v in r["losses"]), r["losses"]
+            want = {name: per_step.get(name, 0) * steps for name in r["counts"]}
+            assert r["counts"] == want, (rank, r["counts"], want)
+            for name, c in r["counts"].items():
+                totals[name] = totals.get(name, 0) + c
+            if "invariant" in r:
+                log(f"ranks {tag} rank {rank}: max |{RANK_INVARIANTS[algo][1]}{{s}} - node "
+                    f"(i - s)'s copy| = {r['invariant']} after one more exchange")
+                assert r["invariant"] <= INVARIANT_LIMIT, r["invariant"]
+            if "vs_stacked" in r:
+                diff, same = r["vs_stacked"]
+                log(f"ranks {tag} rank {rank}: params vs the stacked run's node {rank}: "
+                    f"bit_equal={same} max_abs_diff={diff}")
+                assert diff <= RANK_STACKED_ATOL, diff
+        losses = [runs[ri]["losses"] for runs in per_rank]
+        assert all(l == losses[0] for l in losses), losses
+        log(f"ranks {tag}: losses {losses[0]} consensus {per_rank[0][ri]['consensus']}")
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    return totals
+
+
+# a rank's params against the stacked run's node slice: equal unless cuBLAS
+# picks another algorithm for a lone (1, ...) leaf than for a slice of a
+# stacked one, which moves the gradients by rounding (and, through the
+# stochastic codes, the params by at most a few updates of size lr)
+RANK_STACKED_ATOL = 1e-3
+
+
 # ------------------------------------------------------------ serving and families
 
 DEVICE = "cuda"
@@ -1714,6 +1931,7 @@ def main() -> int:
     phase_kernels_decode(torch, q, ref, rec)
     phase_kernels_sparse_decode(torch, q, ref, rec)
     phase_kernels_lowrank(torch, lk, ref, rec)
+    phase_kernel_offsets(torch, q, ref, rec)
     totals = {name: 0 for name in KERNELS}
     runs = [phase_train(torch, algo, wire, steps, per_step, q)
             for algo, wire, steps, per_step in TRAIN_RUNS]
@@ -1740,6 +1958,9 @@ def main() -> int:
     phase_reference(torch, "dcd", "lowrank:2:warm")
     phase_reference(torch, "dcd", "quant:8", topology="full_logn", drop=0.1, n_nodes=8)
     phase_reference_stacked(torch)
+    torch.cuda.empty_cache()
+    for name, c in phase_ranks(torch, q).items():
+        totals[name] += c
     from repro_torch.configs import ARCH_IDS
     served = [phase_serve(torch, arch) for arch in ARCH_IDS]
     log("serve summary: " + json.dumps(served))

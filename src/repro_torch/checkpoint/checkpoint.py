@@ -19,7 +19,15 @@ last ``keep`` checkpoints of a directory are kept.
 
 Restore is driven by the template ``like``: each leaf is read under the
 template's key, checked for shape, cast to the template's dtype and put on
-the template leaf's device.  State whose key encodes its configuration
+the template leaf's device.
+
+Across ranks (one process a gossip node, each holding its node's slice with
+a node axis of 1): ``save(..., group=)`` is called by every rank, and rank 0
+gathers every node-stacked leaf in rank order and writes the file the
+stacked mode writes; ``restore(..., node=i)`` reads that file into rank
+``i``'s template, keeping rows ``i``.  Every tensor is node-stacked but the
+freshness vectors (``.aux/fresh...``), host (n,) vectors every rank holds
+whole.  State whose key encodes its configuration
 fails loudly on a mismatch: a ``wire_lowrank:<r>`` codec state at another
 rank, or a freshness vector ``fresh{s}@drop{salt}`` under another drop
 salt, raises ``KeyError``.
@@ -101,12 +109,34 @@ def _path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
 
 
+def _node_stacked(key: str, leaf: Any) -> bool:
+    """A tensor leaf with one row a node (all but the freshness vectors)."""
+    return isinstance(leaf, torch.Tensor) and not key.startswith(".aux/fresh")
+
+
 def save(ckpt_dir: str, step: int, tree: Any, metadata: Optional[dict] = None,
-         keep: int = 3) -> str:
-    """Write ``tree`` as checkpoint ``step`` of ``ckpt_dir``; returns its path."""
+         keep: int = 3, group=None) -> Optional[str]:
+    """Write ``tree`` as checkpoint ``step`` of ``ckpt_dir``; returns its path.
+    With ``group`` (a :class:`~repro_torch.launch.mesh.NodeGroup`) every rank
+    calls it with its own slice: rank 0 gathers and writes, returning the
+    path, and every rank returns once the file is written (the others with
+    None)."""
+    items = _items(tree)
+    if group is not None:
+        from repro_torch.distributed.transport import RankTransport
+
+        tp = RankTransport(group)
+        items = [(k, tp.gather_to_root(v) if _node_stacked(k, v) else v) for k, v in items]
+        path = _write(ckpt_dir, step, items, metadata, keep) if group.rank == 0 else None
+        group.barrier()
+        return path
+    return _write(ckpt_dir, step, items, metadata, keep)
+
+
+def _write(ckpt_dir: str, step: int, items, metadata: Optional[dict], keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     flat, dtypes = {}, {}
-    for key, leaf in _items(tree):
+    for key, leaf in items:
         flat[key] = _to_numpy(leaf)
         dtypes[key] = _dtype_name(leaf)
     path = _path(ckpt_dir, step)
@@ -134,9 +164,11 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, like: Any, step: Optional[int] = None) -> Tuple[Any, dict]:
+def restore(ckpt_dir: str, like: Any, step: Optional[int] = None,
+            node: Optional[int] = None) -> Tuple[Any, dict]:
     """Restore into the structure of ``like`` (shape-checked); returns
-    ``(tree, manifest)``."""
+    ``(tree, manifest)``.  ``node``: ``like`` is that rank's slice, and each
+    node-stacked leaf of the file gives its rows ``node``."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
@@ -149,6 +181,8 @@ def restore(ckpt_dir: str, like: Any, step: Optional[int] = None) -> Tuple[Any, 
             if key not in data:
                 raise KeyError(f"checkpoint missing leaf {key}")
             arr = data[key]
+            if node is not None and _node_stacked(key, leaf):
+                arr = arr[node:node + 1]
             shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
             if tuple(arr.shape) != shape:
                 raise ValueError(f"{key}: shape {arr.shape} != expected {shape}")

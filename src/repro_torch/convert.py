@@ -12,7 +12,7 @@ each package can be held against the other.
 """
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
@@ -50,14 +50,18 @@ def _tensor(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def dist_state_from_jax(state: Any, device="cuda") -> DistState:
+def dist_state_from_jax(state: Any, device="cuda", node: Optional[int] = None) -> DistState:
     """The JAX runtime's ``DistState`` with its leaves as numpy arrays
     (params, the optimizer's ``OptState``, the aux trees with freshness
     vectors and codec state, the step) -> the port's ``DistState``.  Every
     leaf keeps its dtype and becomes its own tensor on ``device``, but the
-    freshness vectors, which the port keeps on the host."""
+    freshness vectors, which the port keeps on the host.  ``node``: the
+    state of that node's rank, every stacked leaf cut to its rows
+    ``node:node+1`` (the freshness vectors stay whole)."""
+    rows = slice(None) if node is None else slice(node, node + 1)
+
     def tree(t):
-        return None if t is None else tree_map(lambda a: _tensor(a, device), t)
+        return None if t is None else tree_map(lambda a: _tensor(np.asarray(a)[rows], device), t)
 
     aux = {k: (_tensor(v, "cpu") if k.startswith("fresh") else tree(v))
            for k, v in state.aux.items()}

@@ -2,11 +2,12 @@
 D-PSGD baselines, naive compression, DCD-PSGD, ECD-PSGD, CHOCO-SGD and
 DeepSqueeze, on every gossip plan and schedule, with or without edge drops.
 
-The port of the JAX package's ``distributed/decentralized.py``.  State is
-stacked: every leaf has a leading node axis of length ``n`` on one device,
-and a plan shift ``s`` is ``torch.roll(payload, s, dims=0)`` of the ENCODED
-payload — the packed words and scales, as the JAX runtime's
-collective-permute moves them.
+The port of the JAX package's ``distributed/decentralized.py``.  Stacked
+(the default), every leaf has a leading node axis of length ``n`` on one
+device, and a plan shift ``s`` is ``torch.roll(payload, s, dims=0)`` of the
+ENCODED payload — the packed words and scales, as the JAX runtime's
+collective-permute moves them; on ranks (below) the same payload travels
+between processes (:mod:`~repro_torch.distributed.transport`).
 
 * cpsgd: identical replicas apply the node-mean update (no gossip).
 * dpsgd: ``X <- X W - lr*G``, full-precision gossip of X itself.
@@ -43,6 +44,22 @@ replica, estimate or hat on its dropped edges: the dropped nodes' rows are
 saved before the in-place decode and put back after it, bit-equal to the
 JAX package's ``select_delivered``.  The masks and freshness vectors are
 (n,) float32 vectors on the host.  cpsgd refuses drops.
+
+Ranks (``group=``, a :class:`~repro_torch.launch.mesh.NodeGroup`): one
+process a node, the counterpart of the JAX runtime sharding the node axis
+over its mesh.  A rank holds its node's slice of every tree, each leaf with
+a node axis of length 1, so shapes, wire routing and block choices are the
+stacked mode's; it encodes with its node's counter offset
+(:meth:`~repro_torch.distributed.wire.WireFormat.node_offset`), so its
+containers are its rows of the stacked encode, and sends only those
+containers to its plan neighbours
+(:class:`~repro_torch.distributed.transport.RankTransport`).  Per-node plan
+weights, drop masks and freshness are host (n,) vectors, identical on every
+rank, of which a rank takes its own entry; a dropped edge carries nothing.
+C-PSGD's node mean is an all-reduce, the loss metric a gather, the consensus
+metric node 0's params broadcast and an all-reduce.  Every state and every
+per-step loss is bit-equal to the stacked mode's, C-PSGD's params within
+the all-reduce's summation order.
 
 Unlike the JAX step, which is pure and maps whole trees, a step here walks
 the leaves in JAX flatten order with the rounds inside, and finishes each
@@ -81,9 +98,10 @@ from repro_torch.distributed.gossip import (
     mix_leaf,
     weight_for,
 )
+from repro_torch.distributed.transport import Lazy, make_transport, wire_refused_shapes
 from repro_torch.distributed.wire import Payload, WireFormat, leaf_seed, make_wire_format
 from repro_torch.optim.optimizers import OptState, Optimizer
-from repro_torch.tree import leaf_items, tree_leaves, tree_map
+from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map
 
 ALGOS = ("cpsgd", "dpsgd", "naive", "dcd", "ecd", "choco", "deepsqueeze")
 # the algorithms that encode through a wire format
@@ -116,14 +134,18 @@ def _check_algo(algo: str) -> None:
         raise ValueError(f"algorithms are {ALGOS}, got {algo!r}")
 
 
-def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, resync: bool) -> dict:
-    """The aux trees of ``algo`` over the stacked params ``X``: every
-    replica or estimate an exact copy of its neighbour's params (``roll(X,
-    s)`` when ``resync``, X itself at init, where every node holds the same
-    params), DeepSqueeze's zero residual, fresh freshness vectors and the
-    wire's initial codec state."""
+def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, tp=None) -> dict:
+    """The aux trees of ``algo`` over the params ``X``: every replica or
+    estimate an exact copy of its neighbour's params (shifted by the
+    transport ``tp`` to resync, X itself at init, where every node holds the
+    same params), DeepSqueeze's zero residual, fresh freshness vectors and
+    the wire's initial codec state."""
     def copy(s: int):
-        return tree_map(lambda l: torch.roll(l, s, dims=0) if resync and s else l.clone(), X)
+        if tp is None or not s:
+            return tree_map(lambda l: l.clone(), X)
+        items = leaf_items(X)
+        return tree_from_items(list(zip([p for p, _ in items],
+                                        tp.shift_tree([l for _, l in items], s))))
 
     aux: Dict[str, Any] = {}
     prefix = {"dcd": "rep", "ecd": "tilde", "choco": "hat"}.get(algo)
@@ -145,8 +167,9 @@ def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, resync: bo
 
 
 def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
-                    drop=None, wire=None) -> DistState:
-    """Stack ``params_single`` over the plan's nodes; one replica (DCD) or
+                    drop=None, wire=None, group=None) -> DistState:
+    """Stack ``params_single`` over the plan's nodes (over one node, the
+    rank's own, with a ``group``); one replica (DCD) or
     estimate (ECD, CHOCO) tree per shift of the schedule's union, each its
     own copy of the stacked params, or DeepSqueeze's zero residual; the
     baselines keep none.  ``drop`` (a :class:`DropSpec`, rate or
@@ -156,25 +179,28 @@ def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
     (``lowrank:<r>:warm``): its codec state goes under ``aux[wire.aux_name]``."""
     _check_algo(algo)
     sched = _resolve_plan(plan)
-    n = sched.n
-    X = tree_map(lambda p: p.detach().unsqueeze(0).repeat((n,) + (1,) * p.dim()),
+    nodes = make_transport(group, sched.n).nodes
+    X = tree_map(lambda p: p.detach().unsqueeze(0).repeat((nodes,) + (1,) * p.dim()),
                  params_single)
-    aux = _gossip_aux(algo, X, sched, make_drop_spec(drop), wire, resync=False)
+    aux = _gossip_aux(algo, X, sched, make_drop_spec(drop), wire)
     return DistState(params=X, opt=opt.init(X), aux=aux, step=0)
 
 
-def rekey_dist_state(state: DistState, algo: str, plan, drop=None, wire=None) -> DistState:
+def rekey_dist_state(state: DistState, algo: str, plan, drop=None, wire=None,
+                     group=None) -> DistState:
     """Re-key the aux trees for a new ``{plan, wire}`` at a phase boundary,
     keeping params, optimizer moments and the step counter: every replica or
     estimate becomes ``roll(X, s)`` (the exact current neighbour params),
     DeepSqueeze's residual zero, the codec state ``wire.init_aux`` and every
-    freshness vector ones.  The old aux is released before the new one is
+    freshness vector ones; with a ``group`` each rank receives its
+    neighbours' X (label ``resync``).  The old aux is released before the new one is
     built, so the peak holds one set of aux trees.  Updates ``state`` in
     place and returns it."""
     _check_algo(algo)
     sched = _resolve_plan(plan)
     state.aux = {}
-    state.aux = _gossip_aux(algo, state.params, sched, make_drop_spec(drop), wire, resync=True)
+    state.aux = _gossip_aux(algo, state.params, sched, make_drop_spec(drop), wire,
+                            make_transport(group, sched.n))
     return state
 
 
@@ -182,22 +208,6 @@ def _moment_leaves(opt: OptState, n_leaves: int):
     """Per-leaf first and second moments, ``None`` where the optimizer keeps none."""
     return tuple(tree_leaves(t) if t is not None else [None] * n_leaves
                  for t in (opt.m, opt.v))
-
-
-def _roll_payload(payload: Payload, s: int) -> Payload:
-    return {k: torch.roll(v, s, dims=0) for k, v in payload.items()}
-
-
-class _Lazy(dict):
-    """``{s: make(s)}`` made on access and not kept, so that a mix holds one
-    rolled or decoded neighbour at a time."""
-
-    def __init__(self, make: Callable[[int], torch.Tensor]):
-        super().__init__()
-        self.make = make
-
-    def __missing__(self, s: int) -> torch.Tensor:
-        return self.make(s)
 
 
 def _on_device(w, device):
@@ -209,10 +219,18 @@ def _on_device(w, device):
     return w
 
 
+def _received(payload: Optional[Payload], like: torch.Tensor,
+              read: Callable[[Payload], torch.Tensor]) -> torch.Tensor:
+    """``read(payload)``, or zeros like ``like`` where a dropped edge
+    brought no payload (its mixing weight is 0)."""
+    return torch.zeros_like(like) if payload is None else read(payload)
+
+
 def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
-    """Per-node losses and gradients in one backward: node ``i`` evaluates
-    ``loss_fn(params[i], batch[i])``; the nodes share no parameter, so the
-    gradient of the summed losses is every node's own gradient."""
+    """Per-node losses, metrics and gradients in one backward: node ``i``
+    evaluates ``loss_fn(params[i], batch[i])``; the nodes share no
+    parameter, so the gradient of the summed losses is every node's own
+    gradient.  Losses and each metric come back as (nodes,) vectors."""
     leaves = tree_leaves(params)
     n = leaves[0].shape[0]
     for l in leaves:
@@ -232,36 +250,26 @@ def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
         for l in leaves:
             l.grad = None
             l.requires_grad_(False)
-    met = {k: torch.stack([m[k].detach() for m in metrics]).mean() for k in metrics[0]}
+    met = {k: torch.stack([m[k].detach() for m in metrics]) for k in metrics[0]}
     return losses_t.detach(), met, grads
-
-
-def _consensus(params: Any) -> torch.Tensor:
-    """``sum_leaves sum_i ||x_i - mean_j x_j||^2`` in float32, the mean taken
-    of the differences to node 0, so that identical replicas give exactly 0
-    (a float32 mean of equal values need not return the value)."""
-    total = 0.0
-    for l in tree_leaves(params):
-        d = l - l[:1]
-        d.sub_(d.mean(dim=0, keepdim=True))
-        total = total + torch.sum(d.square_())
-    return total
 
 
 @dataclasses.dataclass
 class _Round:
     """One gossip round of a step: its plan, effective encode counter, the
     mixing weights on the device (``None``: the plan's own, unchanged) and,
-    under drops, the dropped rows of every replica shift."""
+    under drops, every exchanged shift's (n,) delivery mask and, stacked,
+    the dropped rows of every replica shift."""
     plan: GossipPlan
     enc: int
     weights: Optional[Tuple[Any, Dict[int, Any]]] = None
     dropped: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+    masks: Optional[Dict[int, torch.Tensor]] = None
 
 
 def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, plan,
                          lr_schedule: Callable[[int], float], gamma: float = 0.5,
-                         drop=None):
+                         drop=None, group=None):
     """Build ``step(state, batch) -> (state, metrics)``; ``state`` is updated
     in place and returned.
 
@@ -275,7 +283,9 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
     hat_self)``), in (0, 1]; the other algorithms ignore it.  ``drop`` (a
     :class:`DropSpec`, rate or ``"rate[:salt[:decay]]"``; None or 0: none)
     injects the deterministic edge drops described in the module
-    docstring."""
+    docstring.  ``group`` (a :class:`~repro_torch.launch.mesh.NodeGroup` of
+    the plan's ``n`` ranks) runs this rank's node only, its state from
+    ``init_dist_state(..., group=)``."""
     _check_algo(algo)
     if not 0.0 < gamma <= 1.0:
         raise ValueError(f"CHOCO consensus stepsize gamma={gamma} must lie in (0, 1]")
@@ -295,6 +305,8 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         wire = None
     salt = _SALT.get(algo)
     wire_aux_key = wire.aux_name if wire is not None and wire.stateful else None
+    tp = make_transport(group, n)
+    refused: List[frozenset] = []       # the payload whitelist, from the first step
 
     def _leaves(state: DistState):
         """The params' leaves in flatten order with each one's wire format."""
@@ -304,13 +316,18 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
 
     def _encode(state: DistState, enc: int, li: int, lw: WireFormat, z: torch.Tensor) -> Payload:
         seed = leaf_seed(enc, salt, li)
+        offset = 0 if tp.rank is None else lw.node_offset(z.shape, tp.rank)
         if wire_aux_key is None:
-            return lw.encode(z, seed)
+            return lw.encode(z, seed, offset)
         if wire_aux_key not in state.aux:
             raise KeyError(f"the {wire.name} wire is stateful: build the state with "
                            f"init_dist_state(..., wire=) to add {wire_aux_key!r}")
-        payload, _ = wire.encode_leaf_stateful(z, seed, li, state.aux[wire_aux_key])
+        payload, _ = wire.encode_leaf_stateful(z, seed, li, state.aux[wire_aux_key], offset)
         return payload
+
+    def _send(rnd: "_Round", payload: Payload, shifts) -> Dict[int, Optional[Payload]]:
+        """This round's neighbour payloads of the shifts (``None``: dropped)."""
+        return tp.exchange(payload, shifts, rnd.masks, refuse=refused[0])
 
     def _plan_rounds(state: DistState, device) -> List[_Round]:
         """This step's rounds with their counters, and under drops their
@@ -324,8 +341,8 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         for rnd, enc in todo:
             if drop is None:
                 weights = None if rnd.uniform else (
-                    _on_device(rnd.self_weight, device),
-                    {s: _on_device(w, device) for s, w in rnd.shifts})
+                    _on_device(tp.local(rnd.self_weight), device),
+                    {s: _on_device(tp.local(w), device) for s, w in rnd.shifts})
                 out.append(_Round(rnd, enc, weights))
                 continue
             if algo in REPLICA_ALGOS:
@@ -338,21 +355,24 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 dropped = {s: torch.nonzero(masks[s] == 0).reshape(-1).to(device)
                            for s in union if not bool(masks[s].all())}
             else:
-                gates = {s: edge_drop_mask(n, s, enc, drop) for s in rnd.shift_list}
+                masks = gates = {s: edge_drop_mask(n, s, enc, drop) for s in rnd.shift_list}
                 dropped = {}
             self_w, ws = gated_weights(rnd, gates)
-            out.append(_Round(rnd, enc, (self_w.to(device), {s: w.to(device)
-                                                             for s, w in ws.items()}),
-                              dropped))
+            out.append(_Round(rnd, enc, (tp.local(self_w).to(device),
+                                         {s: tp.local(w).to(device) for s, w in ws.items()}),
+                              dropped if tp.rank is None else {}, masks))
         return out
 
-    def _advance(rnd: _Round, s: int, lw: WireFormat, payload: Payload, acc: torch.Tensor,
-                 weight: float, acc_weight: float = 1.0) -> None:
-        """Decode the payload rolled by ``s`` into the replica ``acc`` in
-        place, leaving the rows of the nodes whose edge dropped as they were."""
+    def _advance(rnd: _Round, s: int, lw: WireFormat, payload: Optional[Payload],
+                 acc: torch.Tensor, weight: float, acc_weight: float = 1.0) -> None:
+        """Decode the neighbour payload of shift ``s`` into the replica
+        ``acc`` in place, leaving the rows of the nodes whose edge dropped as
+        they were (a rank whose edge dropped received ``None``)."""
+        if payload is None:
+            return
         rows = rnd.dropped.get(s)
         kept = acc.index_select(0, rows) if rows is not None else None
-        lw.decode_axpy_(_roll_payload(payload, s), acc, weight, acc_weight)
+        lw.decode_axpy_(payload, acc, weight, acc_weight)
         if kept is not None:
             acc.index_copy_(0, rows, kept)
 
@@ -361,14 +381,17 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
             g, grads[li] = grads[li], None
             upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
             del g
-            x.add_(upd.mean(dim=0, keepdim=True).expand_as(upd))
+            x.add_(tp.node_mean(upd).expand_as(upd))
 
     def _dpsgd(state, grads, lr, t, X, lws, m, v, rnds):
         for li, x in enumerate(X):
             cur = x
             for rnd in rnds:
-                cur = mix_leaf(rnd.plan, cur,
-                               _Lazy(lambda s, c=cur: torch.roll(c, s, dims=0)), rnd.weights)
+                got = tp.exchange({"x": cur}, rnd.plan.shift_list, rnd.masks, label="dense")
+                cur = mix_leaf(rnd.plan, cur, Lazy(
+                    lambda s, c=cur, got=got: _received(got[s], c, lambda p: p["x"])),
+                    rnd.weights)
+                del got
             g, grads[li] = grads[li], None
             cur.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
             del g
@@ -380,9 +403,11 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
             cur = x
             for rnd in rnds:
                 payload = _encode(state, rnd.enc, li, lw, cur)
-                dec = _Lazy(lambda s, p=payload, c=cur: lw.decode(_roll_payload(p, s), c))
+                got = _send(rnd, payload, rnd.plan.shift_list)
+                dec = Lazy(lambda s, c=cur, got=got: _received(got[s], c,
+                                                               lambda p: lw.decode(p, c)))
                 cur = mix_leaf(rnd.plan, lw.decode(payload, cur), dec, rnd.weights)
-                del payload, dec
+                del payload, got, dec
             g, grads[li] = grads[li], None
             cur.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
             del g
@@ -401,12 +426,13 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 z.sub_(x)                                                # Z = X_half - X
                 payload = _encode(state, rnd.enc, li, lw, z)
                 del z
+                got = _send(rnd, payload, union)
                 # one fused receive kernel per tree; every replica advances
                 # with the rolled words, so rep{s} == roll(X, s)
                 lw.decode_axpy_(payload, x, 1.0)
                 for s in union:
-                    _advance(rnd, s, lw, payload, reps[s][li], 1.0)
-                del payload
+                    _advance(rnd, s, lw, got[s], reps[s][li], 1.0)
+                del payload, got
 
     def _ecd(state, grads, lr, t, X, lws, m, v, rnds):
         tilde_self = tree_leaves(state.aux["tilde_self"])
@@ -428,11 +454,12 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 z = za * x + zb * x_next
                 payload = _encode(state, rnd.enc, li, lw, z)
                 del z
+                got = _send(rnd, payload, union)
                 # est_decay*tilde + blend*decode in one fused pass per tree
                 lw.decode_axpy_(payload, tilde_self[li], blend, est_decay)
                 for s in union:
-                    _advance(rnd, s, lw, payload, tildes[s][li], blend, est_decay)
-                del payload
+                    _advance(rnd, s, lw, got[s], tildes[s][li], blend, est_decay)
+                del payload, got
                 x.copy_(x_next)
                 del x_next
 
@@ -448,12 +475,13 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 z = x - hat_self[li]                                     # Z = X_half - hat_self
                 payload = _encode(state, rnd.enc, li, lw, z)
                 del z
+                got = _send(rnd, payload, union)
                 # every node decodes the words it sent, so hat_self stays equal
                 # to each neighbour's hat{s} of it: hat{s} == roll(hat_self, s)
                 lw.decode_axpy_(payload, hat_self[li], 1.0)
                 for s in union:
-                    _advance(rnd, s, lw, payload, hats[s][li], 1.0)
-                del payload
+                    _advance(rnd, s, lw, got[s], hats[s][li], 1.0)
+                del payload, got
                 mixed = mix_leaf(rnd.plan, hat_self[li],
                                  {s: hats[s][li] for s in rnd.plan.shift_list}, rnd.weights)
                 mixed.sub_(hat_self[li])
@@ -470,6 +498,7 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                     del g
                 err = errs[li].add_(x)                                   # V = X_half + err
                 payload = _encode(state, rnd.enc, li, lw, err)
+                got = _send(rnd, payload, rnd.plan.shift_list)
                 d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
                 if rnd.weights is None and rnd.plan.uniform:
                     # scalar weights: each neighbour's payload is decoded
@@ -477,7 +506,7 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                     # plan_mix's ``out + w*nbr`` of a zero-based decode
                     mixed = rnd.plan.self_weight * d_self
                     for s, w in rnd.plan.shifts:
-                        lw.decode_axpy_(_roll_payload(payload, s), mixed, w)
+                        lw.decode_axpy_(got[s], mixed, w)
                 else:
                     # per-node or gated weights: the kernels take a scalar
                     # weight, so decode each neighbour at 1.0 and mix
@@ -485,13 +514,13 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                         rnd.plan.self_weight, dict(rnd.plan.shifts))
                     mixed = weight_for(self_w, x) * d_self
                     for s in rnd.plan.shift_list:
-                        dec = lw.decode_axpy_(_roll_payload(payload, s), torch.zeros_like(x),
-                                              1.0)
+                        dec = _received(got[s], x,
+                                        lambda p: lw.decode_axpy_(p, torch.zeros_like(x), 1.0))
                         mixed.add_(weight_for(ws[s], x) * dec)
                         del dec
                 # the residual last: an identity payload is the V buffer itself
                 lw.decode_axpy_(payload, err, -1.0)                      # err = V - dec(V)
-                del payload
+                del payload, got
                 x.add_(mixed.sub_(d_self))                               # X_half + (mix - D_self)
                 del mixed, d_self
 
@@ -504,12 +533,18 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         t = state.opt.step + 1
         with torch.no_grad():
             X, lws = _leaves(state)
+            if not refused:     # the whitelist guards what leaves a rank
+                refused.append(wire_refused_shapes(X, lws) if wire is not None
+                               and tp.rank is not None else frozenset())
             m, v = _moment_leaves(state.opt, len(X))
             rnds = [] if algo == "cpsgd" else _plan_rounds(state, X[0].device)
             run(state, grads, lr, t, X, lws, m, v, rnds)
             state.opt.step = t
-            consensus = _consensus(state.params)
+            consensus = tp.consensus(X)
+            # every node's loss and metrics, averaged in node order
+            metrics = {k: tp.gather_nodes(v).mean() for k, v in metrics.items()}
+            loss = tp.gather_nodes(losses).mean()
         state.step += 1
-        return state, {"loss": losses.mean(), "lr": lr, "consensus": consensus, **metrics}
+        return state, {"loss": loss, "lr": lr, "consensus": consensus, **metrics}
 
     return step

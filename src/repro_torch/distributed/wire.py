@@ -19,7 +19,11 @@ package to rounding).
   int8 container, 8 bits), K5a :func:`~repro_torch.kernels.quant.sign_pack_2d`
   (``sign``), K6 :func:`~repro_torch.kernels.quant.sparse_select_pack_2d`
   (``sparse``) — whose counter ``row*block + lane`` is the flat index of the
-  blocked view (:func:`_block_counters`).  Other blocks (the quickstart's
+  blocked view (:func:`_block_counters`).  ``encode(leaf, seed, offset)``
+  adds ``offset`` to that counter: a rank that holds node ``i``'s slice of
+  a stacked leaf, shape ``(1, ...)``, encodes with
+  :meth:`WireFormat.node_offset` and hashes the stacked fold's counters, so
+  its words are rows ``i`` of the stacked encode.  Other blocks (the quickstart's
   block 32) and the shapes-only ``meta`` accounting run the plain versions:
   that gate is the JAX wire's own, not a fallback.  (The JAX runtime
   encodes in jnp; the port puts a kernel on the send side too, held to the
@@ -124,6 +128,14 @@ def _block_counters(shape: Tuple[int, ...], device) -> torch.Tensor:
     return idx
 
 
+def _node_elems(shape: Tuple[int, ...], block: int) -> int:
+    """Elements one node holds in the padded, blocked view of a stacked leaf
+    of ``shape``: ``prod(xb.shape[1:])`` of :func:`_pad_blocks`'s ``xb``."""
+    if len(shape) < 2:
+        raise ValueError(f"a stacked leaf has a node axis and a last dim, got shape {shape}")
+    return math.prod(shape[1:-1]) * (-(-int(shape[-1]) // block) * block)
+
+
 def _pad_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
     """(lead..., d) -> (lead..., nblk, block), zero-padding the last dim."""
     last = x.shape[-1]
@@ -168,8 +180,18 @@ class WireFormat:
 
     name: ClassVar[str] = "base"
 
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
+        """The payload of ``leaf``; a format that hashes an element counter
+        starts it at ``offset`` (see :meth:`node_offset`), the others ignore
+        it."""
         raise NotImplementedError
+
+    def node_offset(self, shape, node: int) -> int:
+        """The counter offset of node ``node``'s rows in the blocked fold of a
+        stacked leaf of ``shape`` (``node * prod(xb.shape[1:])`` mod 2^32):
+        what a rank holding that node's ``(1, ...)`` slice passes to
+        :meth:`encode`.  0 for a format that hashes no counter."""
+        return 0
 
     def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -229,12 +251,12 @@ class WireFormat:
         return {}
 
     def encode_leaf_stateful(self, leaf: torch.Tensor, seed: int, leaf_index: int,
-                             state: Dict[str, torch.Tensor]):
+                             state: Dict[str, torch.Tensor], offset: int = 0):
         """Encode the leaf of flatten index ``leaf_index`` with the codec
         state ``state`` (the dict under :attr:`aux_name`), which it updates IN
         PLACE for that leaf; returns ``(payload, state)``.  Stateless formats
         encode as :meth:`encode` and leave ``state`` as it is."""
-        return self.encode(leaf, seed), state
+        return self.encode(leaf, seed, offset), state
 
     # --- tree-level plumbing (one step/salt/leaf seeding path) ------------
     def encode_tree(self, tree: Any, step: int, salt: int):
@@ -323,7 +345,10 @@ class QuantWire(WireFormat):
             return aligned_block(self.block, last, bits=self.bits)
         return min(self.block, max(last, 1))
 
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def node_offset(self, shape, node: int) -> int:
+        return (node * _node_elems(shape, self._block_for(shape[-1]))) & MASK32
+
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
         block = self._block_for(leaf.shape[-1])
         xb = _pad_blocks(leaf.to(torch.float32), block)
         lead = xb.shape[:-1]
@@ -333,7 +358,7 @@ class QuantWire(WireFormat):
             quant = quantize_pack_2d if on_gate else quantize_pack_2d_ref
         else:               # K3 likewise
             quant = quantize_2d if on_gate else quantize_2d_ref
-        codes, scale = quant(x2d, seed, bits=self.bits)
+        codes, scale = quant(x2d, seed, bits=self.bits, offset=offset)
         return {"codes": codes.reshape(*lead, codes.shape[-1]),
                 "scale": scale.reshape(*lead, 1)}
 
@@ -393,7 +418,10 @@ class SparseWire(WireFormat):
     def _block_for(self, last: int) -> int:
         return min(self.block, max(last, 1))
 
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def node_offset(self, shape, node: int) -> int:
+        return (node * _node_elems(shape, self._block_for(shape[-1]))) & MASK32
+
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
         block = self._block_for(leaf.shape[-1])
         xb = _pad_blocks(leaf.to(torch.float32), block)
         lead = xb.shape[:-1]
@@ -401,7 +429,8 @@ class SparseWire(WireFormat):
         vdtype = getattr(torch, self.value_dtype)
         select = sparse_select_pack_2d if self._kernel_ok(block) \
             and leaf.device.type != "meta" else sparse_select_pack_2d_ref
-        vals, idx = select(x2d, seed, p=self.p, mode=self.mode, value_dtype=vdtype)
+        vals, idx = select(x2d, seed, p=self.p, mode=self.mode, value_dtype=vdtype,
+                           offset=offset)
         return {"values": vals.reshape(*lead, vals.shape[-1]),
                 "idx": idx.reshape(*lead, idx.shape[-1])}
 
@@ -459,7 +488,7 @@ class SignWire(WireFormat):
     def _block_for(self, last: int) -> int:
         return aligned_block(self.block, last, bits=1)
 
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
         block = self._block_for(leaf.shape[-1])
         xb = _pad_blocks(leaf.to(torch.float32), block)
         lead = xb.shape[:-1]
@@ -495,7 +524,7 @@ class Fp16Wire(WireFormat):
 
     name: ClassVar[str] = "fp16"
 
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
         return {"values": leaf.to(torch.float16)}
 
     def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
@@ -509,7 +538,7 @@ class IdentityWire(WireFormat):
 
     name: ClassVar[str] = "identity"
 
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
         return {"values": leaf}
 
     def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
@@ -622,7 +651,7 @@ class LowRankWire(WireFormat):
         return {"p": p, "v": vt}, vt
 
     # --- per-leaf protocol -------------------------------------------------
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
         """Cold-start encode (also the shapes-only accounting of the warm
         format: the factor shapes do not depend on warmth)."""
         if not self._eligible(leaf.shape):
@@ -672,7 +701,7 @@ class LowRankWire(WireFormat):
         return aux
 
     def encode_leaf_stateful(self, leaf: torch.Tensor, seed: int, leaf_index: int,
-                             state: Dict[str, torch.Tensor]):
+                             state: Dict[str, torch.Tensor], offset: int = 0):
         """Warm: project the matrix leaf against ITS carried factor and put
         the re-projected factor in its place in ``state``.  Cold formats and
         fp16 leaves encode as :meth:`encode`."""
@@ -793,8 +822,11 @@ class AdaptiveWire(WireFormat):
         return tuple((p, self.route(p, leaf.shape)) for p, leaf in leaf_items(tree))
 
     # --- per-leaf protocol (size-routed: no path at this level) -----------
-    def encode(self, leaf: torch.Tensor, seed: int) -> Payload:
-        return self.route_size(leaf.shape).encode(leaf, seed)
+    def encode(self, leaf: torch.Tensor, seed: int, offset: int = 0) -> Payload:
+        return self.route_size(leaf.shape).encode(leaf, seed, offset)
+
+    def node_offset(self, shape, node: int) -> int:
+        return self.route_size(shape).node_offset(shape, node)
 
     def decode(self, payload: Payload, like: torch.Tensor) -> torch.Tensor:
         return self.route_size(like.shape).decode(payload, like)

@@ -32,9 +32,9 @@ _I64 = ctypes.c_longlong
 # launcher, the cudaError_t of cudaGetLastError after the launch).
 SIGNATURES = {
     "quant": {
-        "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
+        "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _U32, _P),
         "unpack_dequant_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
-        "quantize_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _P),
+        "quantize_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _U32, _P),
         "dequantize_2d_launch": (_P, _P, _P, _I64, _I, _F, _P),
         "unpack_dequant_2d_launch": (_P, _P, _P, _I, _I, _I, _F, _P),
     },
@@ -43,7 +43,8 @@ SIGNATURES = {
         "unpack_sign_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     },
     "sparse": {
-        "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _F, _P),
+        "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32, _F,
+                                         _P),
         "sparse_select_pack_2d_grid": (_I, _I, _I, _I),
         "sparse_scatter_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
         "sparse_unpack_scatter_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),

@@ -9,7 +9,9 @@
 //   holds a NaN (as jnp.max and torch.amax); safe = scale > 0 ? scale : 1
 //   for the divide (so a NaN row quantizes x*L unnormalised), the raw scale
 //   is stored; v = x * (L / safe), u = PCG uniform of the counter
-//   (row*cols + lane) ^ seed, q = clip(floor v + [u < v - floor v], -L, L),
+//   (offset + row*cols + lane) ^ seed, q = clip(floor v + [u < v - floor v],
+//   -L, L) (`offset` places the fold in a larger one: a rank encoding one
+//   node's rows of a stacked leaf hashes the whole fold's counters),
 //   biased code q + L + 1 stream-packed plane-major: word w of group g sits
 //   at column w*G + g and carries codes {j*G + g}.
 //   Bound on this card: memory.  Each element is read once as f32 (4 B) and
@@ -57,7 +59,7 @@
 //
 // Exactness: every kernel is bit-equal to its plain PyTorch version in
 // kernels/ref.py.  The hash is native uint32 arithmetic with wraparound; the
-// counter is the same row*cols + lane in uint32; L/safe is a correctly
+// counter is the same offset + row*cols + lane in uint32; L/safe is a correctly
 // rounded division (__fdiv_rn, never fast math); every product and sum that
 // the reference rounds separately is written with a _rn intrinsic, so nvcc
 // cannot contract it into an FMA; 1/L is the f32 the host passes (inv_l),
@@ -138,7 +140,7 @@ __device__ __forceinline__ int stochastic_code(float x, float mul, uint32_t coun
 template <int BITS>
 __global__ void __launch_bounds__(kThreads)
 quantize_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
-                     float* __restrict__ scale, int cols, uint32_t seed) {
+                     float* __restrict__ scale, int cols, uint32_t seed, uint32_t offset) {
   using Geo = Geometry<BITS>;
   constexpr int L = Geo::kLevels;
   extern __shared__ float staged[];           // the row, then its codes
@@ -150,7 +152,7 @@ quantize_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   const float mul = code_multiplier(s, L);
 
   uint32_t* codes = reinterpret_cast<uint32_t*>(staged);
-  const uint32_t base = row * static_cast<uint32_t>(cols);
+  const uint32_t base = offset + row * static_cast<uint32_t>(cols);
   for (int i = threadIdx.x; i < cols; i += kThreads) {
     const int q = stochastic_code(staged[i], mul, base + static_cast<uint32_t>(i), seed, L);
     codes[i] = static_cast<uint32_t>(q + L + 1);
@@ -178,7 +180,8 @@ quantize_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
 
 __global__ void __launch_bounds__(kThreads)
 quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ codes,
-                float* __restrict__ scale, int cols, int levels, uint32_t seed) {
+                float* __restrict__ scale, int cols, int levels, uint32_t seed,
+                uint32_t offset) {
   extern __shared__ float staged[];
   __shared__ float warp_max[kThreads / 32];
   const uint32_t row = blockIdx.x;
@@ -186,7 +189,7 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ codes,
                                   warp_max);
   const float mul = code_multiplier(s, levels);
   int8_t* cr = codes + static_cast<size_t>(row) * cols;
-  const uint32_t base = row * static_cast<uint32_t>(cols);
+  const uint32_t base = offset + row * static_cast<uint32_t>(cols);
   for (int i = threadIdx.x; i < cols; i += kThreads)
     cr[i] = static_cast<int8_t>(
         stochastic_code(staged[i], mul, base + static_cast<uint32_t>(i), seed, levels));
@@ -274,9 +277,9 @@ dequantize_kernel(const int8_t* __restrict__ codes, const float* __restrict__ sc
 
 template <int BITS>
 void launch_quantize_pack(const float* x, uint32_t* words, float* scale, int rows,
-                          int cols, uint32_t seed, cudaStream_t stream) {
+                          int cols, uint32_t seed, uint32_t offset, cudaStream_t stream) {
   quantize_pack_kernel<BITS><<<rows, kThreads, cols * sizeof(float), stream>>>(
-      x, words, scale, cols, seed);
+      x, words, scale, cols, seed, offset);
 }
 
 // threads a row for K2 and K4b: one a stream group, whole warps, <= kThreads
@@ -322,19 +325,20 @@ void launch_dequantize(const int8_t* codes, const float* scale, float* out, size
 // cols % 128 == 0); K3, K4a: bits in 2..8 (levels = 2^(bits-1) - 1).
 extern "C" int quantize_pack_2d_launch(const void* x, void* words, void* scale,
                                        int rows, int cols, int bits,
-                                       unsigned int seed, void* stream) {
+                                       unsigned int seed, unsigned int offset,
+                                       void* stream) {
   if (rows == 0) return 0;
   const float* xp = static_cast<const float*>(x);
   uint32_t* wp = static_cast<uint32_t*>(words);
   float* sp = static_cast<float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 2: launch_quantize_pack<2>(xp, wp, sp, rows, cols, seed, st); break;
-    case 3: launch_quantize_pack<3>(xp, wp, sp, rows, cols, seed, st); break;
-    case 4: launch_quantize_pack<4>(xp, wp, sp, rows, cols, seed, st); break;
-    case 5: launch_quantize_pack<5>(xp, wp, sp, rows, cols, seed, st); break;
-    case 6: launch_quantize_pack<6>(xp, wp, sp, rows, cols, seed, st); break;
-    case 7: launch_quantize_pack<7>(xp, wp, sp, rows, cols, seed, st); break;
+    case 2: launch_quantize_pack<2>(xp, wp, sp, rows, cols, seed, offset, st); break;
+    case 3: launch_quantize_pack<3>(xp, wp, sp, rows, cols, seed, offset, st); break;
+    case 4: launch_quantize_pack<4>(xp, wp, sp, rows, cols, seed, offset, st); break;
+    case 5: launch_quantize_pack<5>(xp, wp, sp, rows, cols, seed, offset, st); break;
+    case 6: launch_quantize_pack<6>(xp, wp, sp, rows, cols, seed, offset, st); break;
+    case 7: launch_quantize_pack<7>(xp, wp, sp, rows, cols, seed, offset, st); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -363,11 +367,12 @@ extern "C" int unpack_dequant_axpy_2d_launch(const void* words, const void* scal
 }
 
 extern "C" int quantize_2d_launch(const void* x, void* codes, void* scale, int rows,
-                                  int cols, int levels, unsigned int seed, void* stream) {
+                                  int cols, int levels, unsigned int seed,
+                                  unsigned int offset, void* stream) {
   if (rows == 0) return 0;
   quantize_kernel<<<rows, kThreads, cols * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<int8_t*>(codes), static_cast<float*>(scale),
-      cols, levels, seed);
+      cols, levels, seed, offset);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,8 @@
 // (src/repro/kernels/quant.py, `_sparse_select_pack_kernel`).
 //   Per row of a (rows, cols) f32 fold: keep k = ceil(p*cols) elements in the
 //   canonical order, descending key with ties to the smaller index.  randk:
-//   key = pcg_hash((row*cols + lane) ^ seed) over the whole fold, as in K1,
+//   key = pcg_hash((offset + row*cols + lane) ^ seed) over the whole fold
+//   (counters as in K1, `offset` placing the fold in a larger one),
 //   and the kept values times the f32 constant cols/k; topk: key =
 //   bits(|x|) + 1, and 0 for NaN, so NaN ranks below every real magnitude and
 //   -0.0 ties +0.0.  Values leave as f32 or f16 (round to nearest even); the
@@ -215,7 +216,7 @@ __global__ void __launch_bounds__(kSelWarps * 32)
 sparse_select_pack_regs_kernel(const float* __restrict__ x, void* __restrict__ values,
                                uint32_t* __restrict__ idx_words, int rows, int cols, int k,
                                IdxStream st, int topk, int half_values, uint32_t seed,
-                               float rescale, int vec) {
+                               uint32_t offset, float rescale, int vec) {
   constexpr int S = 32 / R;
   extern __shared__ uint32_t words_of[];
   const int lane = threadIdx.x & 31, seg = lane / S, sl = lane % S, lead = lane - sl;
@@ -235,7 +236,7 @@ sparse_select_pack_regs_kernel(const float* __restrict__ x, void* __restrict__ v
       load_span<C>(x + static_cast<size_t>(row + stride) * cols, sl, vec, next);
     uint32_t key[C];
     int at[C];                          // span position -> column in the span
-    const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(cols) +
+    const uint32_t base = offset + static_cast<uint32_t>(row) * static_cast<uint32_t>(cols) +
                           static_cast<uint32_t>(sl * C);
 #pragma unroll
     for (int j = 0; j < C; ++j) {
@@ -354,7 +355,8 @@ template <bool TOPK>
 __global__ void __launch_bounds__(kRowWarps * 32)
 sparse_select_pack_row_kernel(const float* __restrict__ x, void* __restrict__ values,
                               uint32_t* __restrict__ idx_words, int rows, int k,
-                              int n_words, int half_values, uint32_t seed, float rescale) {
+                              int n_words, int half_values, uint32_t seed, uint32_t offset,
+                              float rescale) {
   __shared__ __align__(16) float stage[kRowWarps][32 * kRowStride];
   const int lane = threadIdx.x & 31;
   float* s = stage[threadIdx.x >> 5];
@@ -369,7 +371,7 @@ sparse_select_pack_row_kernel(const float* __restrict__ x, void* __restrict__ va
   const bool valid = lane < n;
   const float* sr = s + lane * kRowStride;
   const float4* sr4 = reinterpret_cast<const float4*>(sr);
-  const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(kRowCols);
+  const uint32_t base = offset + static_cast<uint32_t>(row) * static_cast<uint32_t>(kRowCols);
   // pass 1: the largest kRowK group maxima, descending, and the bound lo
   uint32_t top[kRowK];
 #pragma unroll
@@ -505,7 +507,7 @@ __global__ void __launch_bounds__(kSelWarps * 32)
 sparse_select_pack_smem_kernel(const float* __restrict__ x, void* __restrict__ values,
                                uint32_t* __restrict__ idx_words, int rows, int cols, int k,
                                IdxStream st, int topk, int half_values, uint32_t seed,
-                               float rescale) {
+                               uint32_t offset, float rescale) {
   extern __shared__ uint32_t stage[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
   const uint32_t lanes_below = (1u << lane) - 1u;
@@ -518,7 +520,7 @@ sparse_select_pack_smem_kernel(const float* __restrict__ x, void* __restrict__ v
     const float* xr = x + static_cast<size_t>(row) * cols;
     for (int l = lane; l < cols; l += 32) sval[l] = xr[l];
     __syncwarp();
-    const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(cols);
+    const uint32_t base = offset + static_cast<uint32_t>(row) * static_cast<uint32_t>(cols);
     for (int j = 0; j < c; ++j) {
       const uint32_t key = select_key(sval[b + j], base + static_cast<uint32_t>(b + j), topk,
                                       seed);
@@ -671,30 +673,30 @@ int persistent_grid(const void* kernel, int rows, int warps, size_t smem) {
 template <int C, int R>
 int launch_select_regs(const float* x, void* values, uint32_t* words, int rows, int cols,
                        int k, const IdxStream& st, int topk, int half_values, uint32_t seed,
-                       float rescale, int vec, cudaStream_t s, bool launch) {
+                       uint32_t offset, float rescale, int vec, cudaStream_t s, bool launch) {
   const size_t smem = static_cast<size_t>(kSelWarps) * R * st.words * sizeof(uint32_t);
   const void* kernel = reinterpret_cast<const void*>(sparse_select_pack_regs_kernel<C, R>);
   const int grid = persistent_grid(kernel, (rows + R - 1) / R, kSelWarps, smem);
   if (launch)
     sparse_select_pack_regs_kernel<C, R><<<grid, kSelWarps * 32, smem, s>>>(
-        x, values, words, rows, cols, k, st, topk, half_values, seed, rescale, vec);
+        x, values, words, rows, cols, k, st, topk, half_values, seed, offset, rescale, vec);
   return grid;
 }
 
 // Launches K6 on the path its shape takes and returns the grid; with
 // `launch` false it only returns the grid (-1 for a shape no path takes).
 int select_pack(const float* xf, void* values, uint32_t* words, int rows, int cols, int k,
-                const IdxStream& st, int topk, int half_values, uint32_t seed, float rescale,
-                int vec, cudaStream_t s, bool launch) {
+                const IdxStream& st, int topk, int half_values, uint32_t seed, uint32_t offset,
+                float rescale, int vec, cudaStream_t s, bool launch) {
   if (cols == kRowCols && st.groups == 1 && k <= kRowK && vec) {
     const int grid = (rows + kRowWarps * 32 - 1) / (kRowWarps * 32);
     if (!launch) return grid;
     if (topk) {
       sparse_select_pack_row_kernel<true><<<grid, kRowWarps * 32, 0, s>>>(
-          xf, values, words, rows, k, st.words, half_values, seed, rescale);
+          xf, values, words, rows, k, st.words, half_values, seed, offset, rescale);
     } else {
       sparse_select_pack_row_kernel<false><<<grid, kRowWarps * 32, 0, s>>>(
-          xf, values, words, rows, k, st.words, half_values, seed, rescale);
+          xf, values, words, rows, k, st.words, half_values, seed, offset, rescale);
     }
     return grid;
   }
@@ -703,7 +705,7 @@ int select_pack(const float* xf, void* values, uint32_t* words, int rows, int co
 #define K6_REGS(C, R)                                                                   \
   case (C) / (R):                                                                       \
     return launch_select_regs<(C), (R)>(xf, values, words, rows, cols, k, st, topk,     \
-                                        half_values, seed, rescale, vec, s, launch);
+                                        half_values, seed, offset, rescale, vec, s, launch);
       K6_REGS(8, 2)     // the sparse wire's block: two rows a warp, 8 columns a lane
       K6_REGS(8, 1) K6_REGS(12, 1) K6_REGS(16, 1) K6_REGS(20, 1) K6_REGS(24, 1) K6_REGS(28, 1)
       K6_REGS(32, 1)
@@ -728,7 +730,7 @@ int select_pack(const float* xf, void* values, uint32_t* words, int rows, int co
                                    rows, warps, smem);
   if (launch)
     sparse_select_pack_smem_kernel<<<grid, warps * 32, smem, s>>>(
-        xf, values, words, rows, cols, k, st, topk, half_values, seed, rescale);
+        xf, values, words, rows, cols, k, st, topk, half_values, seed, offset, rescale);
   return grid;
 }
 
@@ -742,7 +744,7 @@ int select_pack(const float* xf, void* values, uint32_t* words, int rows, int co
 extern "C" int sparse_select_pack_2d_launch(const void* x, void* values, void* idx_words,
                                             int rows, int cols, int k, int kpad, int topk,
                                             int half_values, unsigned int seed,
-                                            float rescale, void* stream) {
+                                            unsigned int offset, float rescale, void* stream) {
   if (rows == 0) return 0;
   IdxStream st;
   if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
@@ -750,7 +752,7 @@ extern "C" int sparse_select_pack_2d_launch(const void* x, void* values, void* i
   const int vec = (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
   const int grid = select_pack(static_cast<const float*>(x), values,
                                static_cast<uint32_t*>(idx_words), rows, cols, k, st, topk,
-                               half_values, seed, rescale, vec,
+                               half_values, seed, offset, rescale, vec,
                                static_cast<cudaStream_t>(stream), true);
   if (grid < 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -761,7 +763,7 @@ extern "C" int sparse_select_pack_2d_launch(const void* x, void* values, void* i
 extern "C" int sparse_select_pack_2d_grid(int rows, int cols, int k, int kpad) {
   IdxStream st;
   if (rows < 1 || !stream_for(cols, kpad, &st) || k < 1 || k > kpad) return -1;
-  return select_pack(nullptr, nullptr, nullptr, rows, cols, k, st, 1, 0, 0u, 1.0f, 1,
+  return select_pack(nullptr, nullptr, nullptr, rows, cols, k, st, 1, 0, 0u, 0u, 1.0f, 1,
                      nullptr, false);
 }
 

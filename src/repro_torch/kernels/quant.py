@@ -98,23 +98,24 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def quantize_pack_2d(x: torch.Tensor, seed: int, *, bits: int):
+def quantize_pack_2d(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     """Fused quantize + bit-pack of a (rows, cols) f32 tensor, one scale per
-    row.  Returns (int32 words (rows, cols*bits/32), f32 scale (rows, 1))."""
+    row, element counter ``offset + row*cols + lane`` (mod 2^32).  Returns
+    (int32 words (rows, cols*bits/32), f32 scale (rows, 1))."""
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D (rows, cols), got shape {tuple(x.shape)}")
     rows, cols = x.shape
     _check_cols(cols, bits)
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
-        return quantize_pack_2d_ref(x, seed, bits=bits)
+        return quantize_pack_2d_ref(x, seed, bits=bits, offset=offset)
     _check_device("quantize_pack_2d", x.device, cols)
     words = torch.empty((rows, cols * bits // 32), dtype=torch.int32, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     lib = build.load("quant")
     err = lib.quantize_pack_2d_launch(x.data_ptr(), words.data_ptr(), scale.data_ptr(),
-                                      rows, cols, bits, int(seed) & 0xFFFFFFFF,
-                                      _stream(x.device))
+                                      rows, cols, bits, int(seed) & MASK32,
+                                      int(offset) & MASK32, _stream(x.device))
     build.check_launch("quantize_pack_2d", err)
     quantize_pack_2d.launches += 1
     return words, scale
@@ -161,10 +162,10 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
     return out
 
 
-def quantize_2d(x: torch.Tensor, seed: int, *, bits: int):
+def quantize_2d(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     """Quantize a (rows, cols) f32 tensor, one scale per row: K1's head
-    with the codes unpacked.  Returns (int8 codes (rows, cols), f32 scale
-    (rows, 1)); ``bits`` in 2..8."""
+    with the codes unpacked, counters as K1's.  Returns (int8 codes (rows,
+    cols), f32 scale (rows, 1)); ``bits`` in 2..8."""
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D (rows, cols), got shape {tuple(x.shape)}")
     rows, cols = x.shape
@@ -173,13 +174,14 @@ def quantize_2d(x: torch.Tensor, seed: int, *, bits: int):
     _check_block(cols)
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
-        return quantize_2d_ref(x, seed, bits=bits)
+        return quantize_2d_ref(x, seed, bits=bits, offset=offset)
     _check_device("quantize_2d", x.device, cols)
     codes = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
     scale = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
     lib = build.load("quant")
     err = lib.quantize_2d_launch(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), rows, cols,
-                                 levels_for(bits), int(seed) & MASK32, _stream(x.device))
+                                 levels_for(bits), int(seed) & MASK32, int(offset) & MASK32,
+                                 _stream(x.device))
     build.check_launch("quantize_2d", err)
     quantize_2d.launches += 1
     return codes, scale
@@ -294,11 +296,12 @@ def unpack_sign_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Te
 
 
 def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
-                          value_dtype=torch.float32):
+                          value_dtype=torch.float32, offset: int = 0):
     """Fused fixed-capacity selection of a (rows, cols) f32 tensor: ``k =
     ceil(p*cols)`` elements a row in canonical order (descending key, ties to
     the smaller index; ``topk`` key |x| with NaN last, ``randk`` key the PCG
-    hash of the fold's counter, values rescaled by cols/k), their indices
+    hash of the fold's counter ``offset + row*cols + lane``, values rescaled
+    by cols/k), their indices
     stream-packed.  Returns (values (rows, k) ``value_dtype``, int32 words
     (rows, words)) with ``k, words`` from ``sparse_geometry(cols, p)``."""
     if x.dim() != 2:
@@ -313,7 +316,8 @@ def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
         raise TypeError(f"sparse values are {SPARSE_VALUE_DTYPES}, got {value_dtype}")
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
-        return sparse_select_pack_2d_ref(x, seed, p=p, mode=mode, value_dtype=value_dtype)
+        return sparse_select_pack_2d_ref(x, seed, p=p, mode=mode, value_dtype=value_dtype,
+                                         offset=offset)
     _check_device("sparse_select_pack_2d", x.device, cols)
     k, _, kpad, n_words = sparse_geometry(cols, p)
     values = torch.empty((rows, k), dtype=value_dtype, device=x.device)
@@ -322,7 +326,7 @@ def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
     err = lib.sparse_select_pack_2d_launch(
         x.data_ptr(), values.data_ptr(), words.data_ptr(), rows, cols, k, kpad,
         int(mode == "topk"), int(value_dtype == torch.float16), int(seed) & MASK32,
-        f32_scalar(cols / k), _stream(x.device))
+        int(offset) & MASK32, f32_scalar(cols / k), _stream(x.device))
     build.check_launch("sparse_select_pack_2d", err)
     sparse_select_pack_2d.launches += 1
     return values, words

@@ -118,12 +118,16 @@ def uniform_from_hash(idx: torch.Tensor, seed: int) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def block_counters_2d(rows: int, cols: int, device, row0: int = 0) -> torch.Tensor:
-    """``(row0 + r) * cols + lane`` mod 2^32 as int64 — the flat counter of a
-    row-major (rows, cols) fold, which is what the kernels hash."""
+def block_counters_2d(rows: int, cols: int, device, row0: int = 0,
+                      offset: int = 0) -> torch.Tensor:
+    """``offset + (row0 + r) * cols + lane`` mod 2^32 as int64 — the flat
+    counter of a row-major (rows, cols) fold, which is what the kernels
+    hash.  ``offset`` places the fold inside a larger one: a rank that
+    encodes node ``i``'s rows of a stacked leaf passes the element count of
+    the rows before them, so its counters are the whole fold's."""
     r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)
     lanes = torch.arange(cols, dtype=torch.int64, device=device)
-    return (r[:, None] * cols + lanes[None, :]) & MASK32
+    return ((int(offset) & MASK32) + r[:, None] * cols + lanes[None, :]) & MASK32
 
 
 # ------------------------------------------------------------------ packing
@@ -193,7 +197,7 @@ def unpack_codes(packed: torch.Tensor, *, bits: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ quantization
 
-def _quantize_rows(x: torch.Tensor, seed: int, *, bits: int, row0: int):
+def _quantize_rows(x: torch.Tensor, seed: int, *, bits: int, row0: int, offset: int):
     """Scale, normalize, stochastic round one row chunk (``quant.py:146``)."""
     levels = levels_for(bits)
     rows, cols = x.shape
@@ -202,28 +206,30 @@ def _quantize_rows(x: torch.Tensor, seed: int, *, bits: int, row0: int):
     # a true f32 division: ``levels / safe`` on a tensor is computed by torch
     # as ``reciprocal(safe) * levels``, which rounds differently
     v = x * (torch.full_like(safe, levels) / safe)
-    u = uniform_from_hash(block_counters_2d(rows, cols, x.device, row0), seed)
+    u = uniform_from_hash(block_counters_2d(rows, cols, x.device, row0, offset), seed)
     floor = torch.floor(v)
     q = floor + (u < (v - floor)).to(torch.float32)
     return q.clamp(-levels, levels).to(torch.int8), scale
 
 
-def quantize_2d_ref(x: torch.Tensor, seed: int, *, bits: int):
+def quantize_2d_ref(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     """(rows, cols) f32 -> (int8 codes (rows, cols), f32 scale (rows, 1)); one
-    scale per row, counter ``row*cols + lane``."""
+    scale per row, counter ``offset + row*cols + lane`` (mod 2^32)."""
     x = x.to(torch.float32)
-    parts = [_quantize_rows(x[r:r + ROW_CHUNK], seed, bits=bits, row0=r)
+    parts = [_quantize_rows(x[r:r + ROW_CHUNK], seed, bits=bits, row0=r, offset=offset)
              for r in range(0, max(x.shape[0], 1), ROW_CHUNK)]
     return torch.cat([c for c, _ in parts]), torch.cat([s for _, s in parts])
 
 
-def quantize_pack_2d_ref(x: torch.Tensor, seed: int, *, bits: int):
+def quantize_pack_2d_ref(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     """Plain version of kernel K1: quantize, then pack.  Returns (int32 words
-    (rows, cols*bits/32), f32 scale (rows, 1))."""
+    (rows, cols*bits/32), f32 scale (rows, 1)); counters as
+    :func:`quantize_2d_ref`."""
     x = x.to(torch.float32)
     words, scales = [], []
     for r in range(0, max(x.shape[0], 1), ROW_CHUNK):
-        codes, scale = _quantize_rows(x[r:r + ROW_CHUNK], seed, bits=bits, row0=r)
+        codes, scale = _quantize_rows(x[r:r + ROW_CHUNK], seed, bits=bits, row0=r,
+                                      offset=offset)
         words.append(pack_codes(codes, bits=bits))
         scales.append(scale)
     return torch.cat(words), torch.cat(scales)
@@ -281,12 +287,13 @@ def unpack_dequant_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor,
 
 # ------------------------------------------------------------ sparse codec
 
-def sparse_keys_2d(x: torch.Tensor, seed: int, *, mode: str, row0: int = 0) -> torch.Tensor:
+def sparse_keys_2d(x: torch.Tensor, seed: int, *, mode: str, row0: int = 0,
+                   offset: int = 0) -> torch.Tensor:
     """Selection key of every element of a (rows, cols) fold, int64 in
     [0, 2^32); the canonical order is descending key, ties to the smaller
     index.  ``randk``: ``pcg_hash(counter ^ seed)`` with the fold's counter
-    ``(row0 + r) * cols + lane`` (a bijection, so keys in a row are
-    distinct).  ``topk``: ``bits(|x|) + 1``, and 0 for NaN, so NaN ranks
+    ``offset + (row0 + r) * cols + lane`` mod 2^32 (a bijection, so keys in
+    a row are distinct).  ``topk``: ``bits(|x|) + 1``, and 0 for NaN, so NaN ranks
     below every real magnitude and -0.0 ties +0.0 — the order of the JAX
     package's stable ``argsort(-|x|)`` (NaN last, zeros equal).  The
     magnitude is taken on the bits, so no float operation can flush a
@@ -295,28 +302,29 @@ def sparse_keys_2d(x: torch.Tensor, seed: int, *, mode: str, row0: int = 0) -> t
         raise ValueError(f"sparse modes are {SPARSE_MODES}, got {mode!r}")
     rows, cols = x.shape
     if mode == "randk":
-        return pcg_hash(block_counters_2d(rows, cols, x.device, row0) ^ (int(seed) & MASK32))
+        return pcg_hash(block_counters_2d(rows, cols, x.device, row0, offset)
+                        ^ (int(seed) & MASK32))
     mag = x.to(torch.float32).view(torch.int32).to(torch.int64) & 0x7FFFFFFF
     return torch.where(torch.isnan(x), torch.zeros_like(mag), mag + 1)
 
 
 def sparse_order_2d_ref(x: torch.Tensor, seed: int, *, mode: str,
-                        row0: int = 0) -> torch.Tensor:
+                        row0: int = 0, offset: int = 0) -> torch.Tensor:
     """Every column index of a (rows, cols) fold in canonical selection
     order (int64): ``key ^ 0xFFFFFFFF`` sorted ascending and stably, as the
     JAX package sorts its randk keys."""
-    key = sparse_keys_2d(x, seed, mode=mode, row0=row0)
+    key = sparse_keys_2d(x, seed, mode=mode, row0=row0, offset=offset)
     return torch.sort(key ^ MASK32, dim=1, stable=True).indices
 
 
 def sparse_select_2d_ref(x: torch.Tensor, seed: int, *, k: int, mode: str,
-                         value_dtype=torch.float32, row0: int = 0):
+                         value_dtype=torch.float32, row0: int = 0, offset: int = 0):
     """Fixed-capacity selection: (values (rows, k) ``value_dtype``, int64
     indices (rows, k)) in canonical order.  ``randk`` rescales kept values by
     the f32 constant ``cols / k`` (inclusion probability k/cols)."""
     cols = x.shape[1]
     x = x.to(torch.float32)
-    sel = sparse_order_2d_ref(x, seed, mode=mode, row0=row0)[:, :k]
+    sel = sparse_order_2d_ref(x, seed, mode=mode, row0=row0, offset=offset)[:, :k]
     vals = torch.gather(x, 1, sel)
     if mode == "randk":
         vals = vals * f32_scalar(cols / k)
@@ -338,15 +346,16 @@ def sparse_unpack_idx(packed: torch.Tensor, *, block: int, k: int) -> torch.Tens
 
 
 def sparse_select_pack_2d_ref(x: torch.Tensor, seed: int, *, p: float, mode: str,
-                              value_dtype=torch.float32):
+                              value_dtype=torch.float32, offset: int = 0):
     """Plain version of kernel K6: select, gather, pack the index stream.
-    Returns (values (rows, k) ``value_dtype``, int32 words (rows, words))."""
+    Returns (values (rows, k) ``value_dtype``, int32 words (rows, words));
+    ``offset`` moves the random-k counters as in :func:`block_counters_2d`."""
     rows, cols = x.shape
     k, _, kpad, _ = sparse_geometry(cols, p)
     vals, words = [], []
     for r in range(0, max(rows, 1), ROW_CHUNK):
         v, sel = sparse_select_2d_ref(x[r:r + ROW_CHUNK], seed, k=k, mode=mode,
-                                      value_dtype=value_dtype, row0=r)
+                                      value_dtype=value_dtype, row0=r, offset=offset)
         vals.append(v)
         words.append(sparse_pack_idx(sel, block=cols, kpad=kpad))
     return torch.cat(vals), torch.cat(words)

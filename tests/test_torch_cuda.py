@@ -584,3 +584,58 @@ def test_chunked_prefill_on_card_matches_unchunked(cuda, monkeypatch):
     want = attn._sdpa_chunked(q, k, v, window=5, chunk=8)
     got = attn._sdpa_chunked(q.to(cuda), k.to(cuda), v.to(cuda), window=5, chunk=8).cpu()
     assert float((got - want).abs().max()) <= 1e-5
+
+
+_OFFSET_KERNELS = {
+    "K1": (q.quantize_pack_2d, ref.quantize_pack_2d_ref, dict(bits=4)),
+    "K3": (q.quantize_2d, ref.quantize_2d_ref, dict(bits=8)),
+    "K6-randk": (q.sparse_select_pack_2d, ref.sparse_select_pack_2d_ref,
+                 dict(p=0.05, mode="randk")),
+    "K6-randk-regs": (q.sparse_select_pack_2d, ref.sparse_select_pack_2d_ref,
+                      dict(p=0.25, mode="randk")),
+}
+
+
+@pytest.mark.parametrize("kernel", list(_OFFSET_KERNELS))
+@pytest.mark.parametrize("rows,cols", [(64, 128), (16, 1024), (8, 2048)])
+@pytest.mark.parametrize("base", [0, 2**32 - 5 * 128 - 3])
+def test_send_kernels_with_a_counter_offset(cuda, kernel, rows, cols, base):
+    """K1, K3 and K6 random-k with an offset: equal to the plain version at
+    that offset, and rows ``r0:`` at ``base + r0*cols`` equal to those rows
+    of the whole fold at ``base`` (the second base wraps past 2^32)."""
+    launch, plain, kw = _OFFSET_KERNELS[kernel]
+    x = _x(rows, cols, cuda, seed=cols + base % 7)
+    whole = launch(x, 0xC0FFEE, offset=base, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(whole, plain(x, 0xC0FFEE, offset=base, **kw)))
+    for r0 in (1, rows // 2):
+        off = (base + r0 * cols) % 2**32
+        part = launch(x[r0:].contiguous(), 0xC0FFEE, offset=off, **kw)
+        assert all(torch.equal(a[r0:], b) for a, b in zip(whole, part)), r0
+
+
+def test_rank_runtime_on_card_matches_stacked(cuda, tmp_path):
+    """Two ranks share the card over gloo: DCD ``quant:4`` and CHOCO
+    ``sparse:0.05:randk`` on tiny granite, the checkpoints equal the stacked
+    runs' on the card bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainConfig, run_training, spawn_training
+
+    cfg = dataclasses.replace(get_config("granite-3-2b").reduced(), n_layers=1)
+    runs = [dict(algo="dcd", wire="quant:4"), dict(algo="choco", wire="sparse:0.05:randk")]
+    tcs = {mode: [TrainConfig(arch="granite-3-2b", n_nodes=2, seq_len=32, global_batch=4,
+                              steps=2, log_every=1, ckpt_every=2,
+                              ckpt_dir=str(tmp_path / f"{mode}{i}"), **r)
+                  for i, r in enumerate(runs)] for mode in ("stacked", "ranks")}
+    stacked = [run_training(cfg, tc, device="cuda") for tc in tcs["stacked"]]
+    ranked = spawn_training(cfg, tcs["ranks"], "gloo", device="cuda", timeout_s=300)
+    for s_tc, r_tc, s_h, r_h in zip(tcs["stacked"], tcs["ranks"], stacked, ranked):
+        with np.load(f"{s_tc.ckpt_dir}/ckpt_{2:08d}.npz") as a, \
+                np.load(f"{r_tc.ckpt_dir}/ckpt_{2:08d}.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert all(h["losses"] == s_h["losses"] for h in r_h)

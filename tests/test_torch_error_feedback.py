@@ -60,8 +60,8 @@ def _recording(spec: str):
     class Recording(base):
         log: list = dataclasses.field(default_factory=list, compare=False, hash=False)
 
-        def encode(self, leaf, seed):
-            payload = super().encode(leaf, seed)
+        def encode(self, leaf, seed, offset=0):
+            payload = super().encode(leaf, seed, offset)
             self.log.append({k: v.clone() for k, v in payload.items()})
             return payload
 

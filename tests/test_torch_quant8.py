@@ -42,8 +42,8 @@ class RecordingWire(tw.QuantWire):
     """The port's quant wire, keeping every payload it encodes."""
     log: list = dataclasses.field(default_factory=list, compare=False, hash=False)
 
-    def encode(self, leaf, seed):
-        payload = super().encode(leaf, seed)
+    def encode(self, leaf, seed, offset=0):
+        payload = super().encode(leaf, seed, offset)
         self.log.append(payload)
         return payload
 

@@ -80,8 +80,8 @@ class TorchRecording(tw.QuantWire):
     """The port's quant wire, keeping a copy of every payload it encodes."""
     log: list = dataclasses.field(default_factory=list, compare=False, hash=False)
 
-    def encode(self, leaf, seed):
-        payload = super().encode(leaf, seed)
+    def encode(self, leaf, seed, offset=0):
+        payload = super().encode(leaf, seed, offset)
         self.log.append({k: v.clone() for k, v in payload.items()})
         return payload
 

@@ -14,7 +14,10 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    ``wk`` fold 65,536 x 128, and a small ragged case; rows with all zeros,
    -0.0, a NaN and exact ties, and for K6 also an all-NaN row, NaNs past k,
    +-inf, a tie across a lane boundary and ties past a lane's span; K6 at
-   p 0.05, 0.25 and 1.0 in f32 and f16.  Words, indices, values, scales and floats
+   p 0.05, 0.25 and 1.0 in f32 and f16; the bf16-accumulator variants of
+   K2, K5b, K6c and K7b at the same folds (a bf16 accumulator with a zero
+   row, -0.0 and a NaN; weights 1 and an ECD-like decay 0.75).  Words,
+   indices, values, scales and floats
    must be bit-equal (a NaN matching any NaN).  Each is timed with CUDA
    events beside its bound (bytes moved over 3.35 TB/s, or operations over
    67 TFLOP/s, whichever is larger) and beside its plain version; K6 at
@@ -125,6 +128,24 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    exchange shows ``rep{s}`` (``hat{s}``) equal to node ``(i - s)``'s X
    (hat_self) exactly; each rank's DCD params are held to a stacked n-4 run
    on the card (``RANK_STACKED_ATOL``, bit-equality logged).
+14. dryrun (after ranks, before serve) — the port's dryrun
+   (``repro_torch.launch.dryrun``): its smoke on the card (reduced
+   granite-3-2b, DCD ``quant:8``, 2 nodes, 2 executed steps with remat);
+   mistral-large-123b's training plan executed at its published widths with
+   the depth cut 88 -> 1 (``EXEC_RUNS``: its plan's 2 nodes stacked, bf16
+   replicas, remat, 4096 positions, one sequence a node; DCD ``quant:8`` and
+   ``quant:4``, CHOCO ``sign`` and ``sparse:0.05:topk``, DCD
+   ``lowrank:2:warm``, 2 steps each, so that every bf16-accumulator kernel
+   launches): per run the launches, step times, peak memory and the state's
+   bytes on the card, equal to the meta build's count; CHOCO's bf16
+   estimates exactly ``roll(hat_self, 1)``, DCD's bf16 replicas elementwise
+   within the bound of their roundings from ``roll(X, 1)`` that a replica
+   never updated would break (``ReplicaBound``); the runs' records through
+   netsim's ``plan_phases_measured``.  The meta records of every arch x
+   shape (and mistral's train record at 2 pods) are built by a CPU process
+   started after the build, beside the card's phases on a core of its own
+   (this process keeps the others), into ``DRYRUN_RECORDS``, and logged
+   with their build seconds at the end.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` record, and before that the card's name and power
@@ -139,6 +160,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -216,7 +238,21 @@ KERNELS = {
                            "src/repro/kernels/lowrank.py:67"),
     "lowrank_axpy_2d": ("src/repro_torch/kernels/csrc/lowrank.cu",
                         "src/repro/kernels/lowrank.py:92"),
+    # the bf16-accumulator variants of the four receives (bf16 replicas and
+    # estimates); the JAX package widens the accumulator and runs the same
+    # TPU kernel
+    "unpack_dequant_axpy_2d_bf16": ("src/repro_torch/kernels/csrc/quant.cu",
+                                    "src/repro/kernels/quant.py:367"),
+    "unpack_sign_axpy_2d_bf16": ("src/repro_torch/kernels/csrc/sign.cu",
+                                 "src/repro/kernels/quant.py:648"),
+    "sparse_scatter_axpy_2d_bf16": ("src/repro_torch/kernels/csrc/sparse.cu",
+                                    "src/repro/kernels/quant.py:684"),
+    "lowrank_axpy_2d_bf16": ("src/repro_torch/kernels/csrc/lowrank.cu",
+                             "src/repro/kernels/lowrank.py:92"),
 }
+# (aw, w) of the bf16-accumulator checks: DCD's and CHOCO's 1.0, and an
+# ECD-like decay
+BF16_WEIGHTS = ((1.0, 1.0), (0.75, -0.5))
 # the CUDA symbols of those kernels, for the profile
 KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "quantize_kernel",
                   "dequantize_kernel", "unpack_dequant_kernel", "sign_pack_kernel",
@@ -243,6 +279,17 @@ def edge_rows(x, ties: bool):
         x[3, 1::2] = -0.75
         x[4, 10:40] = 0.5
     return x
+
+
+def bf16_acc(torch, acc):
+    """A bfloat16 accumulator from ``acc`` with edge entries: a zero row,
+    -0.0 entries and a NaN (rows of the last two dims)."""
+    a = acc.to(torch.bfloat16)
+    rows = a.view(-1, a.shape[-1])
+    rows[0].zero_()
+    rows[min(1, rows.shape[0] - 1), :7] = -0.0
+    rows[min(2, rows.shape[0] - 1), 3] = float("nan")
+    return a
 
 
 def check(ref, rec: dict, name: str, label: str, got, want, what: str) -> None:
@@ -314,6 +361,14 @@ def phase_kernels(torch, q, ref, rec: dict, bits: int = 4) -> None:
                   (ref.unpack_dequant_axpy_2d_ref(words, scale, acc, bits=bits, weight=w,
                                                   acc_weight=aw),), f"aw={aw}, w={w}")
             del out
+        accb = bf16_acc(torch, acc)
+        for aw, w in BF16_WEIGHTS:
+            out = q.unpack_dequant_axpy_2d(words, scale, accb, bits=bits, weight=w, acc_weight=aw)
+            torch.cuda.synchronize()
+            check(ref, rec, "unpack_dequant_axpy_2d_bf16", label, (out,),
+                  (ref.unpack_dequant_axpy_2d_ref(words, scale, accb, bits=bits, weight=w,
+                                                  acc_weight=aw),), f"bf16 acc, aw={aw}, w={w}")
+            del out
         xn = x.clone()
         xn[2, 5] = float("nan")
         got = q.quantize_pack_2d(xn, seed, bits=bits)
@@ -341,9 +396,17 @@ def phase_kernels(torch, q, ref, rec: dict, bits: int = 4) -> None:
             rec["unpack_dequant_axpy_2d"].update(
                 ms=k2, plain_ms=k2p,
                 bound=bound(rows * W * 4 + rows * 4 + 2 * n * 4, 3 * n))
-            log_times(rec, ("quantize_pack_2d", "unpack_dequant_axpy_2d"))
-            del out
-        del x, words, scale, acc
+            outb = torch.empty_like(accb)
+            rec["unpack_dequant_axpy_2d_bf16"].update(
+                ms=time_ms(torch, lambda: q.unpack_dequant_axpy_2d(
+                    words, scale, accb, bits=bits, weight=1.0, acc_weight=1.0, out=outb), 10),
+                plain_ms=time_ms(torch, lambda: ref.unpack_dequant_axpy_2d_ref(
+                    words, scale, accb, bits=bits, weight=1.0, acc_weight=1.0), 2, 1),
+                bound=bound(rows * W * 4 + rows * 4 + 2 * n * 2, 3 * n))
+            log_times(rec, ("quantize_pack_2d", "unpack_dequant_axpy_2d",
+                            "unpack_dequant_axpy_2d_bf16"))
+            del out, outb
+        del x, words, scale, acc, accb
         torch.cuda.empty_cache()
 
 
@@ -369,6 +432,14 @@ def phase_kernels_sign(torch, q, ref, rec: dict) -> None:
                   (ref.unpack_sign_axpy_2d_ref(words, scale, acc, weight=w, acc_weight=aw),),
                   f"aw={aw}, w={w}")
             del out
+        accb = bf16_acc(torch, acc)
+        for aw, w in BF16_WEIGHTS:
+            out = q.unpack_sign_axpy_2d(words, scale, accb, weight=w, acc_weight=aw)
+            torch.cuda.synchronize()
+            check(ref, rec, "unpack_sign_axpy_2d_bf16", label, (out,),
+                  (ref.unpack_sign_axpy_2d_ref(words, scale, accb, weight=w, acc_weight=aw),),
+                  f"bf16 acc, aw={aw}, w={w}")
+            del out
         if label == "lm_head":
             out = torch.empty_like(acc)
             n, W = rows * cols, words.shape[1]
@@ -382,9 +453,16 @@ def phase_kernels_sign(torch, q, ref, rec: dict) -> None:
                 plain_ms=time_ms(torch, lambda: ref.unpack_sign_axpy_2d_ref(
                     words, scale, acc, weight=1.0, acc_weight=1.0), 2, 1),
                 bound=bound(rows * W * 4 + rows * 4 + 2 * n * 4, 3 * n))
-            log_times(rec, ("sign_pack_2d", "unpack_sign_axpy_2d"))
-            del out
-        del x, words, scale, acc
+            outb = torch.empty_like(accb)
+            rec["unpack_sign_axpy_2d_bf16"].update(
+                ms=time_ms(torch, lambda: q.unpack_sign_axpy_2d(
+                    words, scale, accb, weight=1.0, acc_weight=1.0, out=outb), 10),
+                plain_ms=time_ms(torch, lambda: ref.unpack_sign_axpy_2d_ref(
+                    words, scale, accb, weight=1.0, acc_weight=1.0), 2, 1),
+                bound=bound(rows * W * 4 + rows * 4 + 2 * n * 2, 3 * n))
+            log_times(rec, ("sign_pack_2d", "unpack_sign_axpy_2d", "unpack_sign_axpy_2d_bf16"))
+            del out, outb
+        del x, words, scale, acc, accb
         torch.cuda.empty_cache()
 
 
@@ -420,6 +498,14 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
                   (ref.sparse_scatter_axpy_2d_ref(vals, idx, acc, weight=w, acc_weight=aw),),
                   f"aw={aw}, w={w}")
             del out
+        accb = bf16_acc(torch, acc)
+        for aw, w in BF16_WEIGHTS:
+            out = q.sparse_scatter_axpy_2d(vals, idx, accb, weight=w, acc_weight=aw)
+            torch.cuda.synchronize()
+            check(ref, rec, "sparse_scatter_axpy_2d_bf16", label, (out,),
+                  (ref.sparse_scatter_axpy_2d_ref(vals, idx, accb, weight=w, acc_weight=aw),),
+                  f"bf16 acc, aw={aw}, w={w}")
+            del out
         if label == "lm_head":
             out = torch.empty_like(acc)
             n, k, W = rows * cols, vals.shape[1], idx.shape[1]
@@ -443,12 +529,21 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
                 plain_ms=time_ms(torch, lambda: ref.sparse_scatter_axpy_2d_ref(
                     vals, idx, acc, weight=1.0, acc_weight=1.0), 2, 1),
                 bound=bound(rows * k * 4 + rows * W * 4 + 2 * n * 4, 3 * n))
-            log_times(rec, ("sparse_select_pack_2d", "sparse_scatter_axpy_2d"))
+            outb = torch.empty_like(accb)
+            rec["sparse_scatter_axpy_2d_bf16"].update(
+                ms=time_ms(torch, lambda: q.sparse_scatter_axpy_2d(
+                    vals, idx, accb, weight=1.0, acc_weight=1.0, out=outb), 10),
+                plain_ms=time_ms(torch, lambda: ref.sparse_scatter_axpy_2d_ref(
+                    vals, idx, accb, weight=1.0, acc_weight=1.0), 2, 1),
+                bound=bound(rows * k * 4 + rows * W * 4 + 2 * n * 2, 3 * n))
+            del outb
+            log_times(rec, ("sparse_select_pack_2d", "sparse_scatter_axpy_2d",
+                            "sparse_scatter_axpy_2d_bf16"))
             log(f"time sparse_select_pack_2d lm_head p=0.25 randk: kernel {t25:.4f} ms, bound "
                 f"{b25[0]:.4f} ms ({b25[1]}), plain {p25:.2f} ms (torch.topk at p=0.05 is "
                 f"selection only: no canonical tie order, no packing)")
             del out
-        del x, vals, idx, acc
+        del x, vals, idx, acc, accb
         torch.cuda.empty_cache()
 
 
@@ -602,6 +697,7 @@ def phase_kernels_lowrank(torch, lk, ref, rec: dict) -> None:
         m[1, min(2, rows - 1), 5] = float("nan")
         acc[0, min(1, rows - 1), :5] = -0.0
         acc[2, min(2, rows - 1), 3] = float("nan")
+        accb = bf16_acc(torch, acc)
         for r in LOWRANK_RANKS:
             v0 = torch.rand((n, r), generator=gen, device=dev) - 0.5
             v0[0, 0] = -0.0
@@ -623,17 +719,26 @@ def phase_kernels_lowrank(torch, lk, ref, rec: dict) -> None:
                           (ref.lowrank_axpy_2d_ref(p, v, acc, weight=w, acc_weight=aw),),
                           f"{what}, aw={aw}, w={w}")
                     del out
+                for aw, w in BF16_WEIGHTS if mode == "warm" else ():
+                    out = lk.lowrank_axpy_2d(p, v, accb, weight=w, acc_weight=aw)
+                    torch.cuda.synchronize()
+                    check(ref, rec, "lowrank_axpy_2d_bf16", label, (out,),
+                          (ref.lowrank_axpy_2d_ref(p, v, accb, weight=w, acc_weight=aw),),
+                          f"{what}, bf16 acc, aw={aw}, w={w}")
+                    del out
                 if r == 2:                              # the main path's rank
-                    lowrank_times(torch, lk, ref, rec, label, mode, m, v, p, acc)
+                    lowrank_times(torch, lk, ref, rec, label, mode, m, v, p, acc, accb)
                 del p
             del v0, vw
-        del m, acc
+        del m, acc, accb
         torch.cuda.empty_cache()
 
 
-def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc) -> None:
-    """CUDA-event times of K7a and K7b at one rank-2 fold; the warm
-    ``lm_head`` fold, the main path's largest, fills ``rec``."""
+def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc,
+                  accb) -> None:
+    """CUDA-event times of K7a and K7b (f32 ``acc`` and bf16 ``accb``) at one
+    rank-2 fold; the warm ``lm_head`` fold, the main path's largest, fills
+    ``rec``."""
     batch, rows, n = m.shape
     r = v.shape[-1]
     out = torch.empty_like(acc)
@@ -649,9 +754,17 @@ def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc
             p, v, acc, weight=1.0, acc_weight=1.0), 2, 1),
         "K7b library": time_ms(torch, lambda: torch.baddbmm(acc, p, vt, beta=1.0, alpha=1.0), 10),
     }
+    if mode == "warm":
+        outb = torch.empty_like(accb)
+        t["K7b bf16"] = time_ms(torch, lambda: lk.lowrank_axpy_2d(
+            p, v, accb, weight=1.0, acc_weight=1.0, out=outb), 10)
+        t["K7b bf16 plain"] = time_ms(torch, lambda: ref.lowrank_axpy_2d_ref(
+            p, v, accb, weight=1.0, acc_weight=1.0), 2, 1)
+        del outb
     el = batch * rows * n
     b7a = bound(el * 4 + v_bytes + batch * rows * r * 4, 2 * el * r)
     b7b = bound(batch * rows * r * 4 + v_bytes + 2 * el * 4, (2 * r + 2) * el)
+    b7b16 = bound(batch * rows * r * 4 + v_bytes + 2 * el * 2, (2 * r + 2) * el)
     log(f"time lowrank {label} {mode} rank {r}: " + ", ".join(
         f"{k} {val:.4f} ms" for k, val in t.items()) +
         f"; bound K7a {b7a[0]:.4f} ms ({b7a[1]}), K7b {b7b[0]:.4f} ms ({b7b[1]})")
@@ -660,7 +773,9 @@ def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc
                                          library_ms=t["K7a library"], bound=b7a)
         rec["lowrank_axpy_2d"].update(ms=t["K7b"], plain_ms=t["K7b plain"],
                                       library_ms=t["K7b library"], bound=b7b)
-        log_times(rec, ("lowrank_project_2d", "lowrank_axpy_2d"))
+        rec["lowrank_axpy_2d_bf16"].update(ms=t["K7b bf16"], plain_ms=t["K7b bf16 plain"],
+                                           bound=b7b16)
+        log_times(rec, ("lowrank_project_2d", "lowrank_axpy_2d", "lowrank_axpy_2d_bf16"))
     del out
 
 
@@ -1904,8 +2019,250 @@ def phase_train_families(torch, q, arch: str, n_layers: int, n_nodes: int, seq_l
     return counts
 
 
+# the dryrun's executed plan: mistral-large-123b at its published widths,
+# depth cut 88 -> 1, its plan's 2 nodes and bf16 replicas stacked on the
+# card, remat, train_4k's 4096 positions and one sequence a node
+EXEC_ARCH, EXEC_LAYERS, EXEC_SEQ = "mistral-large-123b", 1, 4096
+# (algo, wire, steps, the kernels the run must launch): every bf16 variant
+# launches on a path (CHOCO decodes only into bf16 estimates)
+EXEC_RUNS = (
+    ("dcd", "quant:8", 2, ("quantize_2d", "dequantize_2d")),
+    ("dcd", "quant:4", 2, ("quantize_pack_2d", "unpack_dequant_axpy_2d",
+                           "unpack_dequant_axpy_2d_bf16")),
+    ("choco", "sign", 2, ("sign_pack_2d", "unpack_sign_axpy_2d_bf16")),
+    ("choco", "sparse:0.05:topk", 2, ("sparse_select_pack_2d", "sparse_scatter_axpy_2d_bf16")),
+    ("dcd", "lowrank:2:warm", 2, ("lowrank_project_2d", "lowrank_axpy_2d",
+                                  "lowrank_axpy_2d_bf16")),
+)
+DRYRUN_RECORDS = ROOT / "build" / "dryrun" / "records.jsonl"     # git-ignored
+
+
+def split_cores():
+    """Pin this process (and so every thread and process it starts later)
+    to all of its cores but the last, and return the cores for the meta
+    records' process, so the card's host-bound phases never share a core
+    with it."""
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) > 1:
+        os.sched_setaffinity(0, cores[:-1])
+    return {cores[-1]}
+
+
+def start_meta_records(cores):
+    """The dryrun's meta records in a CPU process beside the card's phases
+    (they need no device), pinned to ``cores`` with one thread: every arch
+    x shape at 1 pod, then mistral's train record at 2 pods, appended to
+    ``DRYRUN_RECORDS``."""
+    DRYRUN_RECORDS.parent.mkdir(parents=True, exist_ok=True)
+    if DRYRUN_RECORDS.exists():
+        DRYRUN_RECORDS.unlink()
+    mod = f"{sys.executable} -m repro_torch.launch.dryrun --json {DRYRUN_RECORDS}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log_file = open(DRYRUN_RECORDS.with_suffix(".log"), "w")
+    return subprocess.Popen(
+        ["sh", "-c", f"{mod} && {mod} --multi-pod --arch {EXEC_ARCH} --shape train_4k"],
+        env=env, stdout=log_file, stderr=subprocess.STDOUT,
+        preexec_fn=lambda: os.sched_setaffinity(0, cores)), log_file
+
+
+def finish_meta_records(proc, log_file) -> list:
+    """Wait for the meta records, log each with its build seconds, and hold
+    them: every arch x shape at 1 pod and one at 2 pods, each with a
+    positive argument size and roofline."""
+    proc.wait(timeout=900)
+    log_file.close()
+    text = DRYRUN_RECORDS.with_suffix(".log").read_text()
+    assert proc.returncode == 0, text[-4000:]
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.specs import SHAPES
+    recs = [json.loads(l) for l in DRYRUN_RECORDS.read_text().splitlines() if l.strip()]
+    assert len(recs) == len(ARCH_IDS) * len(SHAPES) + 1, len(recs)
+    for r in recs:
+        assert r["memory"]["argument_bytes"] > 0 and r["flops_per_chip"] > 0, r["arch"]
+        log(f"dryrun meta {r['arch']} {r['shape']} {'2-pod' if r['multi_pod'] else '1-pod'}: "
+            f"build_s={r['build_s']} argument_bytes={r['memory']['argument_bytes']} "
+            f"bottleneck={r['bottleneck']} t_compute_s={r['t_compute_s']} "
+            f"t_memory_s={r['t_memory_s']} t_collective_s={r['t_collective_s']}")
+    log(f"dryrun meta: {len(recs)} records, build_s total "
+        f"{sum(r['build_s'] for r in recs):.1f}")
+    return recs
+
+
+def phase_dryrun_smoke(torch, q) -> dict:
+    """``dryrun_smoke`` on the card: reduced granite, DCD ``quant:8``, 2
+    nodes, 2 executed steps with remat; its launches counted."""
+    from repro_torch.launch.dryrun import dryrun_smoke
+    q.reset_launch_counts()
+    rec = dryrun_smoke("granite-3-2b", device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in q.launch_counts().items() if v}
+    assert math.isfinite(rec["loss"]) and rec["n_devices"] == 1, rec
+    log(f"dryrun smoke: loss={rec['loss']} launches {counts}")
+    return counts
+
+
+def state_nbytes(torch, state) -> int:
+    """The bytes of a ``DistState``'s tensors: params, optimizer moments,
+    aux trees (replicas, estimates, freshness vectors, codec state)."""
+    from repro_torch.tree import leaf_items
+    trees = [state.params, state.opt.m, state.opt.v, *state.aux.values()]
+    return sum(l.numel() * l.element_size() for t in trees if t is not None
+               for _, l in leaf_items(t) if isinstance(l, torch.Tensor))
+
+
+class ReplicaBound:
+    """An elementwise bound on DCD's bf16 replicas, ``|rep{s} - roll(X, s)|``.
+
+    Each step decodes the same delta ``v`` into X (float32, ``X + v``) and
+    into each replica (``bf16(float(rep) + v)``), so the replica drifts from
+    X only by its roundings: at most ``2^-8 |rep|`` a step for the bf16
+    rounding (with room for the float32 sum's and this bound's own) plus
+    ``2^-23 |X|`` for the float32 sums, on top of the initial copy's
+    rounding.  The bound is kept per element on the host in bf16, rounded
+    up; a replica that missed any update exceeds it wherever X moved by
+    more than a few of its bf16 roundings, which :meth:`check` counts."""
+
+    def __init__(self, torch, state):
+        from repro_torch.tree import tree_leaves
+        self.torch, self.leaves = torch, tree_leaves
+        self.shifts = sorted(int(k[3:]) for k in state.aux if k.startswith("rep"))
+        self.bound = {(s, i): self._store((r.float() - torch.roll(x, s, 0)).abs())
+                      for s, pairs in self._pairs(state) for i, (x, r) in enumerate(pairs)}
+
+    def _pairs(self, state):
+        X = self.leaves(state.params)
+        return [(s, list(zip(X, self.leaves(state.aux[f"rep{s:+d}"])))) for s in self.shifts]
+
+    def _store(self, b):
+        # round-to-nearest of b (1 + 2^-7) is at least b
+        return (b * (1 + 2.0 ** -7)).to(self.torch.bfloat16).cpu()
+
+    def advance(self, state) -> None:
+        """Add one step's roundings (call after each step)."""
+        torch = self.torch
+        for s, pairs in self._pairs(state):
+            for i, (x, r) in enumerate(pairs):
+                b = self.bound[s, i].to(x.device).float()
+                b += (2.0 ** -8 + 2.0 ** -14) * r.float().abs()
+                b += 2.0 ** -23 * torch.roll(x, s, 0).abs() + 2.0 ** -120
+                self.bound[s, i] = self._store(b)
+
+    def check(self, state, x0) -> tuple:
+        """Hold every replica element within its bound; returns the largest
+        gap over bound and the number of elements where a replica left at
+        its initial copy ``bf16(x0)`` would be out of bound."""
+        torch, worst, stale = self.torch, 0.0, 0
+        for s, pairs in self._pairs(state):
+            for i, ((x, r), x0l) in enumerate(zip(pairs, self.leaves(x0))):
+                b = self.bound[s, i].to(x.device).float()
+                rolled = torch.roll(x, s, 0)
+                gap = (r.float() - rolled).abs()
+                assert bool((gap <= b).all()), (s, i, (gap - b).max().item())
+                worst = max(worst, (gap / b.clamp_min(2.0 ** -126)).max().item())
+                stale += int(((x0l.to(torch.bfloat16).float() - rolled).abs() > b).sum())
+        return worst, stale
+
+
+def phase_dryrun_plan(torch, q) -> dict:
+    """The executed plan (``EXEC_RUNS``): mistral-large-123b's training
+    plan at its published widths with the depth cut to ``EXEC_LAYERS``, its
+    ``n_nodes`` stacked on the card on a ring with its bf16 replicas and its
+    remat, random weights (seed 0) and one random sequence of ``EXEC_SEQ``
+    tokens a node a step.  Per run the launch counts zeroed before and read
+    after, the state's bytes on the card (as built) equal to the meta
+    build's count, peak memory, step times (host clock around a step ending
+    in a synchronize), and the shared-state invariants: CHOCO's bf16
+    ``hat{s}`` exactly ``roll(hat_self, s)``, DCD's bf16 ``rep{s}`` within
+    :class:`ReplicaBound` of ``roll(X, s)``, a bound that a replica left at
+    its initial value breaks; the records go to netsim's controller."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.decentralized import init_dist_state, make_dist_train_step
+    from repro_torch.distributed.gossip import make_gossip_plan
+    from repro_torch.distributed.plans import TRAIN_PLANS
+    from repro_torch.distributed.wire import make_wire_format
+    from repro_torch.launch.dryrun import _gossip_record, _wire_record
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.models.api import build_model, make_batch
+    from repro_torch.netsim import plan_phases_measured
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.tree import tree_leaves
+    plan = TRAIN_PLANS[EXEC_ARCH]
+    cfg = dataclasses.replace(get_config(EXEC_ARCH), n_layers=EXEC_LAYERS)
+    model, n = build_model(cfg), plan.n_nodes
+    gossip = make_gossip_plan("ring", n)
+    totals, records = {}, []
+    for algo, wire, steps, must in EXEC_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        codec, opt = make_wire_format(wire), sgd()
+        meta = init_dist_state(algo, params_specs(cfg), gossip, opt, wire=codec,
+                               aux_dtype=plan.torch_aux_dtype)
+        q.reset_launch_counts()
+        state = init_dist_state(algo, model.init(0, device="cuda"), gossip, opt, wire=codec,
+                                aux_dtype=plan.torch_aux_dtype)
+        step = make_dist_train_step(lambda p, b: model.loss(p, b, remat=plan.remat), algo,
+                                    opt, codec, gossip, constant(1e-2))
+        built = state_nbytes(torch, state)
+        bound = ReplicaBound(torch, state) if algo == "dcd" else None
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        losses, times = [], []
+        for _ in range(steps):
+            batches = [make_batch(cfg, gen, 1, EXEC_SEQ) for _ in range(n)]
+            batch = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            if bound is not None:
+                bound.advance(state)
+        counts = {k: v for k, v in q.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        tag = f"dryrun plan {EXEC_ARCH} ({EXEC_LAYERS} layer) {algo} {wire}"
+        aux = [l for a, t in state.aux.items() if a.split("+")[0] in ("rep", "hat")
+               or a == "hat_self" for l in tree_leaves(t)]
+        assert aux and all(l.dtype == torch.bfloat16 for l in aux), tag
+        if algo == "choco":
+            gap = max_shift_residual(torch, tree_leaves, state.aux["hat_self"],
+                                     {1: state.aux["hat+1"]})
+            assert gap == 0.0, f"{tag}: hat+1 differs from roll(hat_self, 1) by {gap}"
+            shared = f"hat+1 - roll(hat_self, 1) max {gap}"
+        else:
+            worst, stale = bound.check(state, model.init(0, device="cuda"))
+            # the check has teeth: a replica never updated would fail it
+            assert stale > 0, f"{tag}: X moved within the replicas' rounding bound"
+            shared = (f"rep+1 within its rounding bound of roll(X, 1) (largest gap/bound "
+                      f"{worst}); a replica left at bf16(X0) would exceed it at {stale} "
+                      f"elements")
+            del bound
+        meta_bytes = state_nbytes(torch, meta)
+        log(f"{tag}: losses={losses} step_s={times} peak_memory_allocated={peak} "
+            f"state_bytes={built} meta_state_bytes={meta_bytes} {shared} launches {counts}")
+        assert built == meta_bytes, tag
+        assert all(math.isfinite(l) for l in losses), tag
+        assert all(counts.get(k, 0) > 0 for k in must), (tag, counts)
+        records.append({"arch": EXEC_ARCH, "kind": "train", "algo": algo, "wire": wire,
+                        **_gossip_record(gossip, algo), "n_nodes": n, "n_layers": EXEC_LAYERS,
+                        "aux_dtype": plan.aux_dtype, "remat": plan.remat,
+                        "step_time_s": min(times),
+                        "wire_bits_per_element": _wire_record(
+                            codec, meta.params)["wire_bits_per_element"]})
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del state, step, aux, meta
+    pplan = plan_phases_measured(records, total_steps=100)
+    log("dryrun plan records: " + json.dumps(records))
+    log(f"dryrun plan controller: {pplan.describe()}")
+    torch.cuda.empty_cache()
+    return totals
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    meta_cores = split_cores()
 
     import torch
     if not torch.cuda.is_available():
@@ -1922,6 +2279,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     phase_build(build)
+    meta_proc = start_meta_records(meta_cores)
     assert sorted(KERNELS) == sorted(q.launch_counts()), sorted(q.launch_counts())
     rec = {name: {"err": 0.0} for name in KERNELS}
     phase_kernels(torch, q, ref, rec)
@@ -1932,6 +2290,7 @@ def main() -> int:
     phase_kernels_sparse_decode(torch, q, ref, rec)
     phase_kernels_lowrank(torch, lk, ref, rec)
     phase_kernel_offsets(torch, q, ref, rec)
+    log(f"phases through kernels: {time.perf_counter() - t0:.1f} s")
     totals = {name: 0 for name in KERNELS}
     runs = [phase_train(torch, algo, wire, steps, per_step, q)
             for algo, wire, steps, per_step in TRAIN_RUNS]
@@ -1945,6 +2304,7 @@ def main() -> int:
     for counts in runs:
         for name, c in counts.items():
             totals[name] += c
+    log(f"phases through train_families: {time.perf_counter() - t0:.1f} s")
     phase_profile(torch, "dcd", "quant:4")
     phase_profile(torch, "choco", "sign")
     phase_profile(torch, "choco", "sparse:0.05:topk")
@@ -1959,13 +2319,21 @@ def main() -> int:
     phase_reference(torch, "dcd", "quant:8", topology="full_logn", drop=0.1, n_nodes=8)
     phase_reference_stacked(torch)
     torch.cuda.empty_cache()
+    log(f"phases through reference: {time.perf_counter() - t0:.1f} s")
     for name, c in phase_ranks(torch, q).items():
         totals[name] += c
+    for name, c in phase_dryrun_smoke(torch, q).items():
+        totals[name] += c
+    for name, c in phase_dryrun_plan(torch, q).items():
+        totals[name] += c
+    log(f"phases through dryrun: {time.perf_counter() - t0:.1f} s")
     from repro_torch.configs import ARCH_IDS
     served = [phase_serve(torch, arch) for arch in ARCH_IDS]
     log("serve summary: " + json.dumps(served))
+    log(f"phases through serve: {time.perf_counter() - t0:.1f} s")
     phase_chunked(torch)
     phase_families_reference(torch)
+    finish_meta_records(*meta_proc)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": replaces,
                 "launches": totals[name], "max_abs_err": rec[name]["err"],
                 "ms": rec[name]["ms"], "plain_ms": rec[name]["plain_ms"],

@@ -134,18 +134,31 @@ def _check_algo(algo: str) -> None:
         raise ValueError(f"algorithms are {ALGOS}, got {algo!r}")
 
 
-def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, tp=None) -> dict:
+def _stored(l: torch.Tensor, aux_dtype) -> torch.dtype:
+    """The dtype of a replica or estimate of the params leaf ``l``: float32
+    leaves in ``aux_dtype`` (when given), every other leaf in its own."""
+    return aux_dtype if aux_dtype is not None and l.dtype == torch.float32 else l.dtype
+
+
+def _cast_aux(l: torch.Tensor, aux_dtype) -> torch.Tensor:
+    """A copy of the params leaf ``l`` as a replica or estimate leaf."""
+    return l.to(_stored(l, aux_dtype), copy=True)
+
+
+def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, tp=None,
+                aux_dtype=None) -> dict:
     """The aux trees of ``algo`` over the params ``X``: every replica or
     estimate an exact copy of its neighbour's params (shifted by the
     transport ``tp`` to resync, X itself at init, where every node holds the
     same params), DeepSqueeze's zero residual, fresh freshness vectors and
-    the wire's initial codec state."""
+    the wire's initial codec state.  ``aux_dtype`` stores the replicas,
+    estimates and residual (not the freshness vectors or codec state)."""
     def copy(s: int):
         if tp is None or not s:
-            return tree_map(lambda l: l.clone(), X)
+            return tree_map(lambda l: _cast_aux(l, aux_dtype), X)
         items = leaf_items(X)
-        return tree_from_items(list(zip([p for p, _ in items],
-                                        tp.shift_tree([l for _, l in items], s))))
+        return tree_from_items([(p, _cast_aux(l, aux_dtype)) for p, l in zip(
+            [p for p, _ in items], tp.shift_tree([l for _, l in items], s))])
 
     aux: Dict[str, Any] = {}
     prefix = {"dcd": "rep", "ecd": "tilde", "choco": "hat"}.get(algo)
@@ -155,7 +168,8 @@ def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, tp=None) -
         for s in sched.shift_union:
             aux[f"{prefix}{s:+d}"] = copy(s)
     if algo == "deepsqueeze":
-        aux["err_self"] = tree_map(torch.zeros_like, X)
+        aux["err_self"] = tree_map(lambda l: torch.zeros_like(l, dtype=_stored(l, aux_dtype)),
+                                   X)
     if drop is not None and algo in REPLICA_ALGOS:
         for s in sched.shift_union:
             aux[fresh_key(s, drop.salt)] = torch.ones((sched.n,), dtype=torch.float32)
@@ -167,7 +181,7 @@ def _gossip_aux(algo: str, X: Any, sched: GossipSchedule, drop, wire, tp=None) -
 
 
 def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
-                    drop=None, wire=None, group=None) -> DistState:
+                    drop=None, wire=None, group=None, aux_dtype=None) -> DistState:
     """Stack ``params_single`` over the plan's nodes (over one node, the
     rank's own, with a ``group``); one replica (DCD) or
     estimate (ECD, CHOCO) tree per shift of the schedule's union, each its
@@ -176,31 +190,35 @@ def init_dist_state(algo: str, params_single: Any, plan, opt: Optimizer,
     ``"rate[:salt[:decay]]"``) adds the freshness vector of every union
     shift for DCD, ECD and CHOCO, keyed ``fresh{s:+d}@drop{salt}``.
     ``wire`` (a :class:`WireFormat` or spec) is needed when it is stateful
-    (``lowrank:<r>:warm``): its codec state goes under ``aux[wire.aux_name]``."""
+    (``lowrank:<r>:warm``): its codec state goes under ``aux[wire.aux_name]``.
+    ``aux_dtype`` (None or ``torch.bfloat16``) stores the replicas,
+    estimates and DeepSqueeze's residual, as the JAX package's plans for
+    the biggest architectures do; their receives then run the kernels'
+    bf16-accumulator variants, and every update rounds back into it."""
     _check_algo(algo)
     sched = _resolve_plan(plan)
     nodes = make_transport(group, sched.n).nodes
     X = tree_map(lambda p: p.detach().unsqueeze(0).repeat((nodes,) + (1,) * p.dim()),
                  params_single)
-    aux = _gossip_aux(algo, X, sched, make_drop_spec(drop), wire)
+    aux = _gossip_aux(algo, X, sched, make_drop_spec(drop), wire, aux_dtype=aux_dtype)
     return DistState(params=X, opt=opt.init(X), aux=aux, step=0)
 
 
 def rekey_dist_state(state: DistState, algo: str, plan, drop=None, wire=None,
-                     group=None) -> DistState:
+                     group=None, aux_dtype=None) -> DistState:
     """Re-key the aux trees for a new ``{plan, wire}`` at a phase boundary,
     keeping params, optimizer moments and the step counter: every replica or
     estimate becomes ``roll(X, s)`` (the exact current neighbour params),
     DeepSqueeze's residual zero, the codec state ``wire.init_aux`` and every
     freshness vector ones; with a ``group`` each rank receives its
     neighbours' X (label ``resync``).  The old aux is released before the new one is
-    built, so the peak holds one set of aux trees.  Updates ``state`` in
-    place and returns it."""
+    built, so the peak holds one set of aux trees.  ``aux_dtype`` as in
+    :func:`init_dist_state`.  Updates ``state`` in place and returns it."""
     _check_algo(algo)
     sched = _resolve_plan(plan)
     state.aux = {}
     state.aux = _gossip_aux(algo, state.params, sched, make_drop_spec(drop), wire,
-                            make_transport(group, sched.n))
+                            make_transport(group, sched.n), aux_dtype)
     return state
 
 
@@ -309,9 +327,10 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
     refused: List[frozenset] = []       # the payload whitelist, from the first step
 
     def _leaves(state: DistState):
-        """The params' leaves in flatten order with each one's wire format."""
+        """The params' paths and leaves in flatten order with each leaf's
+        wire format."""
         items = leaf_items(state.params)
-        return ([x for _, x in items],
+        return ([p for p, _ in items], [x for _, x in items],
                 [wire.route(p, x.shape) if wire is not None else None for p, x in items])
 
     def _encode(state: DistState, enc: int, li: int, lw: WireFormat, z: torch.Tensor) -> Payload:
@@ -451,7 +470,9 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 if r == 0:
                     x_next.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
                     del g
-                z = za * x + zb * x_next
+                # s_t is a float32 array in JAX: bf16 estimates and params
+                # promote to float32 here
+                z = za * x.to(torch.float32) + zb * x_next.to(torch.float32)
                 payload = _encode(state, rnd.enc, li, lw, z)
                 del z
                 got = _send(rnd, payload, union)
@@ -460,7 +481,10 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 for s in union:
                     _advance(rnd, s, lw, got[s], tildes[s][li], blend, est_decay)
                 del payload, got
-                x.copy_(x_next)
+                if x_next.dtype == x.dtype:
+                    x.copy_(x_next)
+                else:       # bf16 estimates mix to bf16 params, as JAX's X_next
+                    X[li] = x = x_next
                 del x_next
 
     def _choco(state, grads, lr, t, X, lws, m, v, rnds):
@@ -485,18 +509,22 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 mixed = mix_leaf(rnd.plan, hat_self[li],
                                  {s: hats[s][li] for s in rnd.plan.shift_list}, rnd.weights)
                 mixed.sub_(hat_self[li])
-                x.add_(mixed.mul_(gamma32))                              # X_half + gamma*(mix - hat)
+                x.add_(mixed.mul_(weight_for(gamma32, mixed)))           # X_half + gamma*(mix - hat)
                 del mixed
 
     def _deepsqueeze(state, grads, lr, t, X, lws, m, v, rnds):
-        errs = tree_leaves(state.aux["err_self"])
+        err_items = leaf_items(state.aux["err_self"])
+        errs = [e for _, e in err_items]
         for li, (x, lw) in enumerate(zip(X, lws)):
             g, grads[li] = grads[li], None
             for r, rnd in enumerate(rnds):
                 if r == 0:
                     x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
                     del g
-                err = errs[li].add_(x)                                   # V = X_half + err
+                if errs[li].dtype == x.dtype:
+                    err = errs[li].add_(x)                               # V = X_half + err
+                else:   # a bf16 residual: V is float32, and the residual after it (JAX)
+                    errs[li] = err = x + errs[li]
                 payload = _encode(state, rnd.enc, li, lw, err)
                 got = _send(rnd, payload, rnd.plan.shift_list)
                 d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
@@ -523,6 +551,7 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 del payload, got
                 x.add_(mixed.sub_(d_self))                               # X_half + (mix - D_self)
                 del mixed, d_self
+        state.aux["err_self"] = tree_from_items([(p, e) for (p, _), e in zip(err_items, errs)])
 
     run = {"cpsgd": _cpsgd, "dpsgd": _dpsgd, "naive": _naive, "dcd": _dcd, "ecd": _ecd,
            "choco": _choco, "deepsqueeze": _deepsqueeze}[algo]
@@ -532,13 +561,16 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         lr = lr_schedule(state.step)
         t = state.opt.step + 1
         with torch.no_grad():
-            X, lws = _leaves(state)
+            paths, X, lws = _leaves(state)
             if not refused:     # the whitelist guards what leaves a rank
                 refused.append(wire_refused_shapes(X, lws) if wire is not None
                                and tp.rank is not None else frozenset())
             m, v = _moment_leaves(state.opt, len(X))
             rnds = [] if algo == "cpsgd" else _plan_rounds(state, X[0].device)
             run(state, grads, lr, t, X, lws, m, v, rnds)
+            # a leaf that changed dtype (bf16 aux: ECD's params, DeepSqueeze's
+            # residual) was replaced in its list; put the lists back
+            state.params = tree_from_items(list(zip(paths, X)))
             state.opt.step = t
             consensus = tp.consensus(X)
             # every node's loss and metrics, averaged in node order

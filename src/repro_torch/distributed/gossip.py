@@ -384,12 +384,17 @@ def roll_tree(tree: Any, shift: int) -> Any:
 
 
 def weight_for(w, leaf: torch.Tensor):
-    """A scalar weight stays a Python float (rounded to the leaf's dtype by
-    the product, as JAX's weak-typed scalar); an (n,) vector, numpy or
-    tensor, becomes an ``(n, 1, ..., 1)`` tensor in the leaf's dtype on its
-    device."""
+    """A scalar weight stays a Python float for a float32 leaf (rounded to
+    float32 by the product, as JAX's weak-typed scalar), and for a bfloat16
+    leaf (bf16 replicas) becomes a 0-d tensor of the leaf's dtype: JAX
+    rounds a weak-typed scalar to the array's dtype before the product,
+    where torch would multiply by its float32 value.  An (n,) vector, numpy
+    or tensor, becomes an ``(n, 1, ..., 1)`` tensor in the leaf's dtype on
+    its device."""
     if isinstance(w, (int, float)):
-        return w
+        if leaf.dtype == torch.float32:
+            return w
+        return torch.tensor(w, dtype=leaf.dtype, device=leaf.device)
     t = torch.as_tensor(np.asarray(w) if isinstance(w, np.ndarray) else w)
     return t.to(device=leaf.device, dtype=leaf.dtype).reshape((-1,) + (1,) * (leaf.dim() - 1))
 
@@ -402,7 +407,8 @@ def mix_leaf(plan: GossipPlan, x: torch.Tensor, neighbors: Dict[int, torch.Tenso
     self_w, ws = weights if weights is not None else (plan.self_weight, dict(plan.shifts))
     out = weight_for(self_w, x) * x
     for s in plan.shift_list:
-        out.add_(weight_for(ws[s], x) * neighbors[s])
+        nb = neighbors[s]           # a lazy neighbour decodes on each access
+        out.add_(weight_for(ws[s], nb) * nb)
     return out
 
 

@@ -142,6 +142,7 @@ class StackedTransport:
         value)."""
         total = 0.0
         for l in leaves:
+            l = l.to(torch.float32)
             d = l - l[:1]
             d.sub_(d.mean(dim=0, keepdim=True))
             total = total + torch.sum(d.square_())
@@ -277,6 +278,7 @@ class RankTransport(StackedTransport):
         bcast = lambda b: self.dist.broadcast(b, src=0)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for l in leaves:
+            l = l.to(torch.float32)
             d = l - self._collective(l, "metric", bcast)
             d.sub_(self._collective(d, "metric", self.dist.all_reduce).div_(self.n))
             total = total + torch.sum(d.square_())

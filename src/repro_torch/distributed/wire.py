@@ -72,7 +72,7 @@ from typing import Any, Callable, ClassVar, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.lowrank import lowrank_axpy_2d, lowrank_project_2d
+from repro_torch.kernels.lowrank import ACC_DTYPES, lowrank_axpy_2d, lowrank_project_2d
 from repro_torch.kernels.quant import (
     dequantize_2d,
     quantize_2d,
@@ -150,9 +150,10 @@ def _axpy_folded_(acc: torch.Tensor, nblk: int, block: int,
     """Run ``launch(f2d)``, a receive kernel that updates the (rows, block)
     fold ``f2d`` of ``acc`` in place, and return ``acc``.  A leaf whose last
     dim is not whole blocks is padded into a temporary fold and copied back
-    (as the JAX package pads its accumulator)."""
-    if acc.dtype != torch.float32:
-        raise TypeError(f"the fused receive accumulates in float32, got {acc.dtype}")
+    (as the JAX package pads its accumulator).  ``acc`` is float32 or
+    bfloat16 (bf16 replicas: the kernels' bf16-accumulator variants)."""
+    if acc.dtype not in ACC_DTYPES:
+        raise TypeError(f"the fused receive accumulates into {ACC_DTYPES}, got {acc.dtype}")
     last = acc.shape[-1]
     folded = acc if nblk * block == last and acc.is_contiguous() \
         else F.pad(acc, (0, nblk * block - last)).contiguous()
@@ -199,9 +200,10 @@ class WireFormat:
     def decode_axpy_(self, payload: Payload, acc: torch.Tensor, weight,
                      acc_weight=1.0) -> torch.Tensor:
         """``acc <- acc_weight*acc + weight*decode(payload)`` in place; the
-        default decodes at f32 then accumulates (the JAX base path)."""
+        default decodes at f32 then accumulates in f32, rounding once into
+        ``acc``'s dtype (the JAX base path's ``.astype(acc.dtype)``)."""
         d = self.decode(payload, torch.empty(acc.shape, dtype=torch.float32, device="meta"))
-        acc.copy_(acc_weight * acc + weight * d)
+        acc.copy_(acc_weight * acc.to(torch.float32) + weight * d)
         return acc
 
     def decode_axpy(self, payload: Payload, acc: torch.Tensor, weight,
@@ -673,8 +675,6 @@ class LowRankWire(WireFormat):
         off the 128-lane gate take the plain decode-then-axpy."""
         if "values" in payload or not self._kernel_ok(acc.shape[-1]):
             return super().decode_axpy_(payload, acc, weight, acc_weight)
-        if acc.dtype != torch.float32:
-            raise TypeError(f"the fused receive accumulates in float32, got {acc.dtype}")
         lead, (rows, n) = acc.shape[:-2], acc.shape[-2:]
         batch = math.prod(lead)
         target = acc if acc.is_contiguous() else acc.contiguous()

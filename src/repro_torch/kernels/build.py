@@ -1,6 +1,7 @@
 """Build the CUDA kernels from the sources in this package, bind with ctypes.
 
-Each ``csrc/*.cu`` file is one shared library with a plain C interface,
+Each ``csrc/*.cu`` file is one shared library with a plain C interface
+(the receive kernels share ``csrc/accum.cuh``),
 compiled by ``nvcc`` for ``sm_90a`` at first use into ``build/repro_torch/``
 at the repository root (listed in ``.gitignore``).  The library name carries
 a hash of its source, so an edited source rebuilds and an unchanged one is
@@ -34,6 +35,7 @@ SIGNATURES = {
     "quant": {
         "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _U32, _P),
         "unpack_dequant_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
+        "unpack_dequant_axpy_2d_bf16_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P),
         "quantize_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _U32, _P),
         "dequantize_2d_launch": (_P, _P, _P, _I64, _I, _F, _P),
         "unpack_dequant_2d_launch": (_P, _P, _P, _I, _I, _I, _F, _P),
@@ -41,17 +43,21 @@ SIGNATURES = {
     "sign": {
         "sign_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _P),
         "unpack_sign_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
+        "unpack_sign_axpy_2d_bf16_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _P),
     },
     "sparse": {
         "sparse_select_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _U32, _U32, _F,
                                          _P),
         "sparse_select_pack_2d_grid": (_I, _I, _I, _I),
         "sparse_scatter_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+        "sparse_scatter_axpy_2d_bf16_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                               _P),
         "sparse_unpack_scatter_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "lowrank": {
         "lowrank_project_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _P),
         "lowrank_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _F, _F, _P),
+        "lowrank_axpy_2d_bf16_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _F, _F, _P),
     },
 }
 
@@ -71,7 +77,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """The library of ``csrc/<name>.cu``, named by a hash of that source and
+    of the shared headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -105,6 +116,16 @@ def load(name: str) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+class LaunchCount:
+    """The launch count of a kernel variant that shares its wrapper with the
+    kernel (the bf16-accumulator receives): ``launches`` under ``__name__``,
+    read and reset with the wrappers' own counts."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
 
 
 def check_launch(fn_name: str, err: int) -> None:

@@ -38,6 +38,9 @@
 //   walks the rows: dot = P[i,0]*V[j,0] + P[i,1]*V[j,1] + ... in k order,
 //   out = aw*acc + w*dot.  P[i, k] is the same address for the whole CTA, a
 //   broadcast through L1.  The reconstruction never exists in device memory.
+//   The bf16-accumulator variant (`lowrank_axpy_2d_bf16_launch`, the receive
+//   into bf16 replicas) is the same template on `__nv_bfloat16`
+//   (accum.cuh): 2 + 2 B of accumulator an element.
 //
 // Exactness: both kernels are bit-equal to the plain PyTorch versions in
 // kernels/ref.py.  Every product and sum is written with a _rn intrinsic,
@@ -46,6 +49,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "accum.cuh"
 
 namespace {
 
@@ -109,9 +114,10 @@ lowrank_project_kernel(const float* __restrict__ m, const float* __restrict__ v,
   }
 }
 
+template <typename Acc>
 __global__ void __launch_bounds__(kTile)
 lowrank_axpy_kernel(const float* __restrict__ p, const float* __restrict__ v,
-                    const float* acc, float* out, int rows, int n, int r,
+                    const Acc* acc, Acc* out, int rows, int n, int r,
                     long long v_bstride, float aw, float w) {
   extern __shared__ float sv[];                  // [r][kTile], column t private to thread t
   const int t = threadIdx.x;
@@ -129,7 +135,7 @@ lowrank_axpy_kernel(const float* __restrict__ p, const float* __restrict__ v,
     float dot = __fmul_rn(__ldg(pr), sv[t]);
     for (int c = 1; c < r; ++c) dot = __fadd_rn(dot, __fmul_rn(__ldg(pr + c), sv[c * kTile + t]));
     const size_t e = (static_cast<size_t>(b) * rows + i) * n + j;
-    out[e] = __fadd_rn(__fmul_rn(aw, acc[e]), __fmul_rn(w, dot));
+    accum::store(out, e, __fadd_rn(__fmul_rn(aw, accum::load(acc, e)), __fmul_rn(w, dot)));
   }
 }
 
@@ -140,6 +146,27 @@ int launch_project(const float* m, const float* v, float* p, int batch, int rows
   const dim3 grid((rows + rows_per_cta - 1) / rows_per_cta, batch, (r + RC - 1) / RC);
   lowrank_project_kernel<RC><<<grid, kWarps * 32, 0, stream>>>(m, v, p, rows, n, r,
                                                               v_bstride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Acc>
+int launch_axpy(const void* p, const void* v, const void* acc, void* out, int batch, int rows,
+                int n, int r, long long v_bstride, float aw, float w, void* stream) {
+  if (batch == 0 || rows == 0) return 0;
+  if (r < 1 || r > kMaxRank || n % 128 != 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = r * kTile * static_cast<int>(sizeof(float));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lowrank_axpy_kernel<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int row_tiles = (rows + kRowTile - 1) / kRowTile;
+  if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kTile - 1) / kTile, row_tiles, batch);
+  lowrank_axpy_kernel<Acc><<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(p), static_cast<const float*>(v), static_cast<const Acc*>(acc),
+      static_cast<Acc*>(out), rows, n, r, v_bstride, aw, w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,21 +197,14 @@ extern "C" int lowrank_project_2d_launch(const void* m, const void* v, void* p, 
 extern "C" int lowrank_axpy_2d_launch(const void* p, const void* v, const void* acc,
                                       void* out, int batch, int rows, int n, int r,
                                       long long v_bstride, float aw, float w, void* stream) {
-  if (batch == 0 || rows == 0) return 0;
-  if (r < 1 || r > kMaxRank || n % 128 != 0 || batch > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = r * kTile * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        lowrank_axpy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int row_tiles = (rows + kRowTile - 1) / kRowTile;
-  if (row_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n + kTile - 1) / kTile, row_tiles, batch);
-  lowrank_axpy_kernel<<<grid, kTile, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(v),
-      static_cast<const float*>(acc), static_cast<float*>(out), rows, n, r, v_bstride, aw,
-      w);
-  return static_cast<int>(cudaGetLastError());
+  return launch_axpy<float>(p, v, acc, out, batch, rows, n, r, v_bstride, aw, w, stream);
+}
+
+// K7b with a bfloat16 accumulator (accum.cuh): the same arithmetic in f32
+extern "C" int lowrank_axpy_2d_bf16_launch(const void* p, const void* v, const void* acc,
+                                           void* out, int batch, int rows, int n, int r,
+                                           long long v_bstride, float aw, float w,
+                                           void* stream) {
+  return launch_axpy<__nv_bfloat16>(p, v, acc, out, batch, rows, n, r, v_bstride, aw, w,
+                                    stream);
 }

@@ -45,6 +45,9 @@
 //   writes out[j*G + g] for each j, so for each j a warp's loads of acc and
 //   stores of out are consecutive.  The decoded neighbour never exists in
 //   device memory.
+//   The bf16-accumulator variant (`unpack_dequant_axpy_2d_bf16_launch`, the
+//   receive into bf16 replicas) is the same template on `__nv_bfloat16`
+//   (accum.cuh): 2 + 2 B of accumulator an element, about 4.5 B at 4 bits.
 //
 // K4b `unpack_dequant` replaces the TPU kernel `unpack_dequant_2d`
 // (`_unpack_dequant_kernel`): K2's plane unpacking with no accumulator,
@@ -69,6 +72,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "accum.cuh"
 
 namespace {
 
@@ -206,17 +211,17 @@ __device__ __forceinline__ int plane_code(const uint32_t* w, int j) {
   return static_cast<int>(v & ((1u << BITS) - 1u)) - (Geometry<BITS>::kLevels + 1);
 }
 
-template <int BITS>
+template <int BITS, typename Acc>
 __global__ void __launch_bounds__(kThreads)
 unpack_dequant_axpy_kernel(const uint32_t* __restrict__ words,
-                           const float* __restrict__ scale, const float* acc,
-                           float* out, int cols, float aw, float wl) {
+                           const float* __restrict__ scale, const Acc* acc,
+                           Acc* out, int cols, float aw, float wl) {
   using Geo = Geometry<BITS>;
   const size_t row = blockIdx.x;
   const int G = cols / Geo::kCpg;
   const uint32_t* wr = words + row * (G * Geo::kWpg);
-  const float* ar = acc + row * cols;
-  float* orow = out + row * cols;
+  const Acc* ar = acc + row * cols;
+  Acc* orow = out + row * cols;
   const float inv = __fmul_rn(scale[row], wl);
   for (int g = threadIdx.x; g < G; g += blockDim.x) {
     uint32_t w[Geo::kWpg];
@@ -225,8 +230,9 @@ unpack_dequant_axpy_kernel(const uint32_t* __restrict__ words,
 #pragma unroll
     for (int j = 0; j < Geo::kCpg; ++j) {
       const int i = j * G + g;
-      orow[i] = __fadd_rn(__fmul_rn(aw, ar[i]),
-                          __fmul_rn(static_cast<float>(plane_code<BITS>(w, j)), inv));
+      accum::store(orow, i, __fadd_rn(__fmul_rn(aw, accum::load(ar, i)),
+                                      __fmul_rn(static_cast<float>(plane_code<BITS>(w, j)),
+                                                inv)));
     }
   }
 }
@@ -290,12 +296,31 @@ int group_threads(int cols) {
   return threads > kThreads ? kThreads : threads;
 }
 
-template <int BITS>
-void launch_unpack_axpy(const uint32_t* words, const float* scale, const float* acc,
-                        float* out, int rows, int cols, float aw, float wl,
+template <int BITS, typename Acc>
+void launch_unpack_axpy(const uint32_t* words, const float* scale, const void* acc,
+                        void* out, int rows, int cols, float aw, float wl,
                         cudaStream_t stream) {
-  unpack_dequant_axpy_kernel<BITS><<<rows, group_threads<BITS>(cols), 0, stream>>>(
-      words, scale, acc, out, cols, aw, wl);
+  unpack_dequant_axpy_kernel<BITS, Acc><<<rows, group_threads<BITS>(cols), 0, stream>>>(
+      words, scale, static_cast<const Acc*>(acc), static_cast<Acc*>(out), cols, aw, wl);
+}
+
+template <typename Acc>
+int unpack_axpy_bits(const void* words, const void* scale, const void* acc, void* out,
+                     int rows, int cols, int bits, float aw, float wl, void* stream) {
+  if (rows == 0) return 0;
+  const uint32_t* wp = static_cast<const uint32_t*>(words);
+  const float* sp = static_cast<const float*>(scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 2: launch_unpack_axpy<2, Acc>(wp, sp, acc, out, rows, cols, aw, wl, st); break;
+    case 3: launch_unpack_axpy<3, Acc>(wp, sp, acc, out, rows, cols, aw, wl, st); break;
+    case 4: launch_unpack_axpy<4, Acc>(wp, sp, acc, out, rows, cols, aw, wl, st); break;
+    case 5: launch_unpack_axpy<5, Acc>(wp, sp, acc, out, rows, cols, aw, wl, st); break;
+    case 6: launch_unpack_axpy<6, Acc>(wp, sp, acc, out, rows, cols, aw, wl, st); break;
+    case 7: launch_unpack_axpy<7, Acc>(wp, sp, acc, out, rows, cols, aw, wl, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int BITS>
@@ -348,22 +373,16 @@ extern "C" int unpack_dequant_axpy_2d_launch(const void* words, const void* scal
                                              const void* acc, void* out, int rows,
                                              int cols, int bits, float aw, float wl,
                                              void* stream) {
-  if (rows == 0) return 0;
-  const uint32_t* wp = static_cast<const uint32_t*>(words);
-  const float* sp = static_cast<const float*>(scale);
-  const float* ap = static_cast<const float*>(acc);
-  float* op = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 2: launch_unpack_axpy<2>(wp, sp, ap, op, rows, cols, aw, wl, st); break;
-    case 3: launch_unpack_axpy<3>(wp, sp, ap, op, rows, cols, aw, wl, st); break;
-    case 4: launch_unpack_axpy<4>(wp, sp, ap, op, rows, cols, aw, wl, st); break;
-    case 5: launch_unpack_axpy<5>(wp, sp, ap, op, rows, cols, aw, wl, st); break;
-    case 6: launch_unpack_axpy<6>(wp, sp, ap, op, rows, cols, aw, wl, st); break;
-    case 7: launch_unpack_axpy<7>(wp, sp, ap, op, rows, cols, aw, wl, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return unpack_axpy_bits<float>(words, scale, acc, out, rows, cols, bits, aw, wl, stream);
+}
+
+// K2 with a bfloat16 accumulator (accum.cuh): the same arithmetic in f32
+extern "C" int unpack_dequant_axpy_2d_bf16_launch(const void* words, const void* scale,
+                                                  const void* acc, void* out, int rows,
+                                                  int cols, int bits, float aw, float wl,
+                                                  void* stream) {
+  return unpack_axpy_bits<__nv_bfloat16>(words, scale, acc, out, rows, cols, bits, aw, wl,
+                                         stream);
 }
 
 extern "C" int quantize_2d_launch(const void* x, void* codes, void* scale, int rows,

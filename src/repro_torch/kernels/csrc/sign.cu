@@ -27,6 +27,9 @@
 //   Design: one thread per word; thread (row, g) loads word g and the
 //   row's scale once and writes out[j*G + g] for each j, so for each j the
 //   loads of acc and stores of out of consecutive threads are consecutive.
+//   The bf16-accumulator variant (`unpack_sign_axpy_2d_bf16_launch`, the
+//   receive into bf16 estimates) is the same template on `__nv_bfloat16`
+//   (accum.cuh): 2 + 2 B of accumulator an element.
 //
 // Exactness: both kernels are bit-equal to the plain PyTorch versions in
 // kernels/ref.py.  Every product and sum the reference rounds separately is
@@ -34,6 +37,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "accum.cuh"
 
 namespace {
 
@@ -71,9 +76,10 @@ sign_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   }
 }
 
+template <typename Acc>
 __global__ void __launch_bounds__(kThreads)
 unpack_sign_axpy_kernel(const uint32_t* __restrict__ words,
-                        const float* __restrict__ scale, const float* acc, float* out,
+                        const float* __restrict__ scale, const Acc* acc, Acc* out,
                         int rows, int cols, float aw, float w) {
   const int G = cols / 32;
   const size_t gid = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -82,14 +88,27 @@ unpack_sign_axpy_kernel(const uint32_t* __restrict__ words,
   const int g = static_cast<int>(gid % G);
   const uint32_t word = words[gid];
   const float ws = __fmul_rn(scale[row], w);
-  const float* ar = acc + row * cols;
-  float* orow = out + row * cols;
+  const Acc* ar = acc + row * cols;
+  Acc* orow = out + row * cols;
 #pragma unroll 8
   for (int j = 0; j < 32; ++j) {
     const int i = j * G + g;
     const float s = (word >> j) & 1u ? ws : -ws;
-    orow[i] = __fadd_rn(__fmul_rn(aw, ar[i]), s);
+    accum::store(orow, i, __fadd_rn(__fmul_rn(aw, accum::load(ar, i)), s));
   }
+}
+
+template <typename Acc>
+int launch_unpack_sign_axpy(const void* words, const void* scale, const void* acc, void* out,
+                            int rows, int cols, float aw, float w, void* stream) {
+  if (rows == 0) return 0;
+  if (cols % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t threads = static_cast<size_t>(rows) * (cols / 32);
+  const unsigned grid = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  unpack_sign_axpy_kernel<Acc><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const float*>(scale),
+      static_cast<const Acc*>(acc), static_cast<Acc*>(out), rows, cols, aw, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -115,12 +134,13 @@ extern "C" int sign_pack_2d_launch(const void* x, void* words, void* scale, int 
 extern "C" int unpack_sign_axpy_2d_launch(const void* words, const void* scale,
                                           const void* acc, void* out, int rows, int cols,
                                           float aw, float w, void* stream) {
-  if (rows == 0) return 0;
-  if (cols % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t threads = static_cast<size_t>(rows) * (cols / 32);
-  const unsigned grid = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  unpack_sign_axpy_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const float*>(scale),
-      static_cast<const float*>(acc), static_cast<float*>(out), rows, cols, aw, w);
-  return static_cast<int>(cudaGetLastError());
+  return launch_unpack_sign_axpy<float>(words, scale, acc, out, rows, cols, aw, w, stream);
+}
+
+// K5b with a bfloat16 accumulator (accum.cuh): the same arithmetic in f32
+extern "C" int unpack_sign_axpy_2d_bf16_launch(const void* words, const void* scale,
+                                               const void* acc, void* out, int rows, int cols,
+                                               float aw, float w, void* stream) {
+  return launch_unpack_sign_axpy<__nv_bfloat16>(words, scale, acc, out, rows, cols, aw, w,
+                                                stream);
 }

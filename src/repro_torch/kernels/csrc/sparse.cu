@@ -58,7 +58,10 @@
 //   Design: one warp per row.  The warp unpacks the k indices into a
 //   lane -> slot map in shared memory (an index past cols is dropped, as the
 //   TPU kernel's compare drops it), then one coalesced pass over the row
-//   writes every lane.
+//   writes every lane.  The bf16-accumulator variant
+//   (`sparse_scatter_axpy_2d_bf16_launch`, the receive into bf16 estimates)
+//   is the same template on `__nv_bfloat16` (accum.cuh): 2 + 2 B of
+//   accumulator an element.
 //
 // K6b `sparse_unpack_scatter` replaces the TPU kernel `sparse_unpack_scatter_2d`
 // (src/repro/kernels/quant.py, `_sparse_scatter_kernel`).
@@ -79,6 +82,8 @@
 #include <cstdint>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "accum.cuh"
 
 namespace {
 
@@ -572,10 +577,11 @@ __device__ __forceinline__ float sparse_value(const void* values, size_t o, int 
                      : static_cast<const float*>(values)[o];
 }
 
+template <typename Acc>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 sparse_scatter_axpy_kernel(const void* __restrict__ values,
-                           const uint32_t* __restrict__ idx_words, const float* acc,
-                           float* out, int rows, int cols, int k, IdxStream st,
+                           const uint32_t* __restrict__ idx_words, const Acc* acc,
+                           Acc* out, int rows, int cols, int k, IdxStream st,
                            int rows_per_cta, int half_values, float aw, float w) {
   extern __shared__ uint16_t slot_of[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -585,13 +591,13 @@ sparse_scatter_axpy_kernel(const void* __restrict__ values,
   uint16_t* slots = slot_of + warp * cols;
   build_slot_map(idx_words + static_cast<size_t>(row) * st.words, st, k, cols, slots, lane);
   const size_t vbase = static_cast<size_t>(row) * k;
-  const float* ar = acc + static_cast<size_t>(row) * cols;
-  float* orow = out + static_cast<size_t>(row) * cols;
+  const Acc* ar = acc + static_cast<size_t>(row) * cols;
+  Acc* orow = out + static_cast<size_t>(row) * cols;
   for (int l = lane; l < cols; l += 32) {
     const uint16_t s = slots[l];
     const float d = s != 0xFFFFu ? __fmul_rn(w, sparse_value(values, vbase + s, half_values))
                                  : 0.0f;
-    orow[l] = __fadd_rn(__fmul_rn(aw, ar[l]), d);
+    accum::store(orow, l, __fadd_rn(__fmul_rn(aw, accum::load(ar, l)), d));
   }
 }
 
@@ -734,6 +740,23 @@ int select_pack(const float* xf, void* values, uint32_t* words, int rows, int co
   return grid;
 }
 
+template <typename Acc>
+int launch_scatter_axpy(const void* values, const void* idx_words, const void* acc, void* out,
+                        int rows, int cols, int k, int kpad, int half_values, float aw,
+                        float w, void* stream) {
+  if (rows == 0) return 0;
+  IdxStream st;
+  if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rpc = rows_per_cta_for(cols);
+  const size_t smem = static_cast<size_t>(rpc) * cols * sizeof(uint16_t);
+  const int grid = (rows + rpc - 1) / rpc;
+  sparse_scatter_axpy_kernel<Acc><<<grid, rpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      values, static_cast<const uint32_t*>(idx_words), static_cast<const Acc*>(acc),
+      static_cast<Acc*>(out), rows, cols, k, st, rpc, half_values, aw, w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes (kernels/build.py).  Each returns the
@@ -771,17 +794,17 @@ extern "C" int sparse_scatter_axpy_2d_launch(const void* values, const void* idx
                                              const void* acc, void* out, int rows, int cols,
                                              int k, int kpad, int half_values, float aw,
                                              float w, void* stream) {
-  if (rows == 0) return 0;
-  IdxStream st;
-  if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rpc = rows_per_cta_for(cols);
-  const size_t smem = static_cast<size_t>(rpc) * cols * sizeof(uint16_t);
-  const int grid = (rows + rpc - 1) / rpc;
-  sparse_scatter_axpy_kernel<<<grid, rpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      values, static_cast<const uint32_t*>(idx_words), static_cast<const float*>(acc),
-      static_cast<float*>(out), rows, cols, k, st, rpc, half_values, aw, w);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scatter_axpy<float>(values, idx_words, acc, out, rows, cols, k, kpad,
+                                    half_values, aw, w, stream);
+}
+
+// K6c with a bfloat16 accumulator (accum.cuh): the same arithmetic in f32
+extern "C" int sparse_scatter_axpy_2d_bf16_launch(const void* values, const void* idx_words,
+                                                  const void* acc, void* out, int rows,
+                                                  int cols, int k, int kpad, int half_values,
+                                                  float aw, float w, void* stream) {
+  return launch_scatter_axpy<__nv_bfloat16>(values, idx_words, acc, out, rows, cols, k, kpad,
+                                            half_values, aw, w, stream);
 }
 
 extern "C" int sparse_unpack_scatter_2d_launch(const void* values, const void* idx_words,

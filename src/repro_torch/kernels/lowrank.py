@@ -27,6 +27,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import f32_scalar, lowrank_axpy_2d_ref, lowrank_project_2d_ref
 
 MAX_RANK = 128
+# the launch count of K7b's bf16-accumulator variant (bf16 replicas)
+LOWRANK_AXPY_2D_BF16 = build.LaunchCount("lowrank_axpy_2d_bf16")
+# the accumulators of the fused receives (K2, K5b, K6c, K7b): float32, or
+# bfloat16 for bf16 replicas and estimates, each dtype its own kernel
+ACC_DTYPES = (torch.float32, torch.bfloat16)
 MAX_BATCH = 65535           # one grid dimension of CTAs per slab
 AXPY_MAX_ROWS = 65535 * 16  # K7b's row tiles of 16 in one grid dimension
 
@@ -39,9 +44,10 @@ def _as_batched(t: torch.Tensor, name: str) -> torch.Tensor:
     return t
 
 
-def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be torch.float32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device: torch.device,
+           dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if t.device != device:
@@ -112,7 +118,9 @@ def lowrank_axpy_2d(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *, weig
     """Fused rank-r reconstruction + accumulate: ``acc_weight * acc + weight
     * (P @ V^T)`` over (batch, rows, n), P (batch, rows, r), V (batch, n, r)
     (2-D: a batch of one).  ``weight`` and ``acc_weight`` are host numbers
-    rounded to f32; ``out`` may be ``acc`` itself (in-place update)."""
+    rounded to f32; ``out`` may be ``acc`` itself (in-place update).
+    ``acc`` is float32 or bfloat16 (the bf16-accumulator kernel, counted as
+    ``lowrank_axpy_2d_bf16``)."""
     two_d = acc.dim() == 2
     pb, vb, ab = _as_batched(p, "p"), _as_batched(v, "v"), _as_batched(acc, "acc")
     batch, rows, n = ab.shape
@@ -123,11 +131,11 @@ def lowrank_axpy_2d(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *, weig
     dev = acc.device
     _check("p", pb, (batch, rows, r), dev)
     _check("v", vb, (batch, n, r), dev)
-    _check("acc", ab, (batch, rows, n), dev)
+    _check("acc", ab, (batch, rows, n), dev, ACC_DTYPES)
     _check_contiguous("p", pb)
     _check_contiguous("acc", ab)
     if out is not None:
-        _check("out", out, tuple(acc.shape), dev)
+        _check("out", out, tuple(acc.shape), dev, (acc.dtype,))
         _check_contiguous("out", out)
     if dev.type == "meta":
         return torch.empty_like(acc) if out is None else out
@@ -143,12 +151,13 @@ def lowrank_axpy_2d(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *, weig
     if out is None:
         out = torch.empty_like(acc)
     lib = build.load("lowrank")
-    err = lib.lowrank_axpy_2d_launch(pb.data_ptr(), vb.data_ptr(), ab.data_ptr(),
-                                     out.data_ptr(), batch, rows, n, r, v_bstride,
-                                     f32_scalar(acc_weight), f32_scalar(weight),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = acc.dtype == torch.bfloat16
+    launch = lib.lowrank_axpy_2d_bf16_launch if bf16 else lib.lowrank_axpy_2d_launch
+    err = launch(pb.data_ptr(), vb.data_ptr(), ab.data_ptr(), out.data_ptr(), batch, rows, n,
+                 r, v_bstride, f32_scalar(acc_weight), f32_scalar(weight),
+                 torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("lowrank_axpy_2d", err)
-    lowrank_axpy_2d.launches += 1
+    (LOWRANK_AXPY_2D_BF16 if bf16 else lowrank_axpy_2d).launches += 1
     return out
 
 

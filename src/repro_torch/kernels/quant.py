@@ -28,7 +28,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.lowrank import lowrank_axpy_2d, lowrank_project_2d
+from repro_torch.kernels.lowrank import (
+    ACC_DTYPES,
+    LOWRANK_AXPY_2D_BF16,
+    lowrank_axpy_2d,
+    lowrank_project_2d,
+)
 from repro_torch.kernels.ref import (
     MASK32,
     PACKABLE_BITS,
@@ -61,6 +66,12 @@ MAX_COLS = 8192
 
 SPARSE_VALUE_DTYPES = (torch.float32, torch.float16)
 
+# the launch counts of the bf16-accumulator variants, which the f32 kernels'
+# wrappers launch for a bfloat16 ``acc``
+UNPACK_DEQUANT_AXPY_2D_BF16 = build.LaunchCount("unpack_dequant_axpy_2d_bf16")
+UNPACK_SIGN_AXPY_2D_BF16 = build.LaunchCount("unpack_sign_axpy_2d_bf16")
+SPARSE_SCATTER_AXPY_2D_BF16 = build.LaunchCount("sparse_scatter_axpy_2d_bf16")
+
 
 def _check_block(cols: int) -> None:
     if cols % 128 or cols <= 0:
@@ -92,6 +103,20 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_acc(acc: torch.Tensor, out: Optional[torch.Tensor], shape: tuple,
+               device: torch.device) -> None:
+    """A receive's accumulator (float32 or bfloat16) and ``out``, its dtype."""
+    if acc.dtype not in ACC_DTYPES:
+        raise TypeError(f"acc must be one of {ACC_DTYPES}, got {acc.dtype}")
+    _check_tensor("acc", acc, acc.dtype, shape, device)
+    if out is not None:
+        _check_tensor("out", out, acc.dtype, shape, device)
+
+
+def _plain_into(res: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    return res if out is None else out.copy_(res)
 
 
 def _stream(device: torch.device) -> int:
@@ -129,7 +154,9 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
 
     ``weight`` and ``acc_weight`` are host numbers, rounded to f32 as the JAX
     kernel's ``(2,)`` f32 operand rounds them.  ``out`` may be ``acc`` itself
-    (in-place update, which the runtime uses for params and replicas)."""
+    (in-place update, which the runtime uses for params and replicas).
+    ``acc`` is float32 or bfloat16 (bf16 replicas: the bf16-accumulator
+    kernel, counted as ``unpack_dequant_axpy_2d_bf16``)."""
     if packed.dim() != 2:
         raise ValueError(f"packed must be 2-D (rows, words), got {tuple(packed.shape)}")
     rows, w = packed.shape
@@ -142,23 +169,23 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
     dev = packed.device
     _check_tensor("packed", packed, torch.int32, (rows, w), dev)
     _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
-    _check_tensor("acc", acc, torch.float32, (rows, cols), dev)
-    if out is not None:
-        _check_tensor("out", out, torch.float32, (rows, cols), dev)
+    _check_acc(acc, out, (rows, cols), dev)
     if dev.type == "cpu":
-        res = unpack_dequant_axpy_2d_ref(packed, scale, acc, bits=bits, weight=weight,
-                                         acc_weight=acc_weight)
-        return res if out is None else out.copy_(res)
+        return _plain_into(unpack_dequant_axpy_2d_ref(packed, scale, acc, bits=bits,
+                                                      weight=weight, acc_weight=acc_weight),
+                           out)
     _check_device("unpack_dequant_axpy_2d", dev, cols)
     if out is None:
         out = torch.empty_like(acc)
     aw, wl = axpy_weights(bits, weight, acc_weight)
     lib = build.load("quant")
-    err = lib.unpack_dequant_axpy_2d_launch(packed.data_ptr(), scale.data_ptr(),
-                                            acc.data_ptr(), out.data_ptr(), rows, cols,
-                                            bits, aw, wl, _stream(dev))
+    bf16 = acc.dtype == torch.bfloat16
+    launch = lib.unpack_dequant_axpy_2d_bf16_launch if bf16 \
+        else lib.unpack_dequant_axpy_2d_launch
+    err = launch(packed.data_ptr(), scale.data_ptr(), acc.data_ptr(), out.data_ptr(), rows,
+                 cols, bits, aw, wl, _stream(dev))
     build.check_launch("unpack_dequant_axpy_2d", err)
-    unpack_dequant_axpy_2d.launches += 1
+    (UNPACK_DEQUANT_AXPY_2D_BF16 if bf16 else unpack_dequant_axpy_2d).launches += 1
     return out
 
 
@@ -268,7 +295,8 @@ def unpack_sign_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Te
                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused unpack + sign decode + accumulate:
     ``acc_weight * acc + (2u - 1) * (scale * weight)`` over (rows, cols).
-    ``out`` may be ``acc`` itself (in-place update)."""
+    ``out`` may be ``acc`` itself (in-place update).  ``acc`` is float32 or
+    bfloat16 (counted as ``unpack_sign_axpy_2d_bf16``)."""
     if packed.dim() != 2:
         raise ValueError(f"packed must be 2-D (rows, words), got {tuple(packed.shape)}")
     rows, w = packed.shape
@@ -277,21 +305,20 @@ def unpack_sign_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Te
     dev = packed.device
     _check_tensor("packed", packed, torch.int32, (rows, w), dev)
     _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
-    _check_tensor("acc", acc, torch.float32, (rows, cols), dev)
-    if out is not None:
-        _check_tensor("out", out, torch.float32, (rows, cols), dev)
+    _check_acc(acc, out, (rows, cols), dev)
     if dev.type == "cpu":
-        res = unpack_sign_axpy_2d_ref(packed, scale, acc, weight=weight, acc_weight=acc_weight)
-        return res if out is None else out.copy_(res)
+        return _plain_into(unpack_sign_axpy_2d_ref(packed, scale, acc, weight=weight,
+                                                   acc_weight=acc_weight), out)
     _check_device("unpack_sign_axpy_2d", dev, cols)
     if out is None:
         out = torch.empty_like(acc)
     lib = build.load("sign")
-    err = lib.unpack_sign_axpy_2d_launch(packed.data_ptr(), scale.data_ptr(), acc.data_ptr(),
-                                         out.data_ptr(), rows, cols, f32_scalar(acc_weight),
-                                         f32_scalar(weight), _stream(dev))
+    bf16 = acc.dtype == torch.bfloat16
+    launch = lib.unpack_sign_axpy_2d_bf16_launch if bf16 else lib.unpack_sign_axpy_2d_launch
+    err = launch(packed.data_ptr(), scale.data_ptr(), acc.data_ptr(), out.data_ptr(), rows,
+                 cols, f32_scalar(acc_weight), f32_scalar(weight), _stream(dev))
     build.check_launch("unpack_sign_axpy_2d", err)
-    unpack_sign_axpy_2d.launches += 1
+    (UNPACK_SIGN_AXPY_2D_BF16 if bf16 else unpack_sign_axpy_2d).launches += 1
     return out
 
 
@@ -381,7 +408,8 @@ def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torc
                            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused unpack + scatter + accumulate: ``acc_weight * acc + weight *
     scatter(values)`` over (rows, cols), a lane that receives no value
-    adding +0.0.  ``out`` may be ``acc`` itself (in-place update)."""
+    adding +0.0.  ``out`` may be ``acc`` itself (in-place update).  ``acc``
+    is float32 or bfloat16 (counted as ``sparse_scatter_axpy_2d_bf16``)."""
     if values.dim() != 2 or acc.dim() != 2:
         raise ValueError(f"values and acc must be 2-D, got {tuple(values.shape)}, "
                          f"{tuple(acc.shape)}")
@@ -398,30 +426,30 @@ def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torc
     dev = values.device
     _check_tensor("values", values, values.dtype, (rows, k), dev)
     _check_tensor("packed", packed, torch.int32, (rows, kpad * idx_bits // 32), dev)
-    _check_tensor("acc", acc, torch.float32, (rows, cols), dev)
-    if out is not None:
-        _check_tensor("out", out, torch.float32, (rows, cols), dev)
+    _check_acc(acc, out, (rows, cols), dev)
     if dev.type == "cpu":
-        res = sparse_scatter_axpy_2d_ref(values, packed, acc, weight=weight,
-                                         acc_weight=acc_weight)
-        return res if out is None else out.copy_(res)
+        return _plain_into(sparse_scatter_axpy_2d_ref(values, packed, acc, weight=weight,
+                                                      acc_weight=acc_weight), out)
     _check_device("sparse_scatter_axpy_2d", dev, cols)
     if out is None:
         out = torch.empty_like(acc)
     lib = build.load("sparse")
-    err = lib.sparse_scatter_axpy_2d_launch(
-        values.data_ptr(), packed.data_ptr(), acc.data_ptr(), out.data_ptr(), rows, cols, k,
-        kpad, int(values.dtype == torch.float16), f32_scalar(acc_weight),
-        f32_scalar(weight), _stream(dev))
+    bf16 = acc.dtype == torch.bfloat16
+    launch = lib.sparse_scatter_axpy_2d_bf16_launch if bf16 \
+        else lib.sparse_scatter_axpy_2d_launch
+    err = launch(values.data_ptr(), packed.data_ptr(), acc.data_ptr(), out.data_ptr(), rows,
+                 cols, k, kpad, int(values.dtype == torch.float16), f32_scalar(acc_weight),
+                 f32_scalar(weight), _stream(dev))
     build.check_launch("sparse_scatter_axpy_2d", err)
-    sparse_scatter_axpy_2d.launches += 1
+    (SPARSE_SCATTER_AXPY_2D_BF16 if bf16 else sparse_scatter_axpy_2d).launches += 1
     return out
 
 
 KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, quantize_2d, dequantize_2d,
                    unpack_dequant_2d, sign_pack_2d, unpack_sign_axpy_2d,
                    sparse_select_pack_2d, sparse_unpack_scatter_2d, sparse_scatter_axpy_2d,
-                   lowrank_project_2d, lowrank_axpy_2d)
+                   lowrank_project_2d, lowrank_axpy_2d, UNPACK_DEQUANT_AXPY_2D_BF16,
+                   UNPACK_SIGN_AXPY_2D_BF16, SPARSE_SCATTER_AXPY_2D_BF16, LOWRANK_AXPY_2D_BF16)
 
 
 def reset_launch_counts() -> None:

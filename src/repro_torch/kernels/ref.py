@@ -49,6 +49,13 @@ MASK32 = 0xFFFFFFFF
 ROW_CHUNK = 1 << 16
 
 
+def row_step(x: torch.Tensor) -> int:
+    """The rows a plain encoder takes at a time: ``ROW_CHUNK`` (bounds its
+    temporaries at full width), or all of them on the meta device, where
+    the wire accounting builds containers from shapes alone."""
+    return max(x.shape[0], 1) if x.device.type == "meta" else ROW_CHUNK
+
+
 def stream_geometry(bits: int) -> tuple:
     """(codes per group, words per group) of the v2 stream layout."""
     l = math.lcm(bits, 32)
@@ -216,8 +223,9 @@ def quantize_2d_ref(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     """(rows, cols) f32 -> (int8 codes (rows, cols), f32 scale (rows, 1)); one
     scale per row, counter ``offset + row*cols + lane`` (mod 2^32)."""
     x = x.to(torch.float32)
-    parts = [_quantize_rows(x[r:r + ROW_CHUNK], seed, bits=bits, row0=r, offset=offset)
-             for r in range(0, max(x.shape[0], 1), ROW_CHUNK)]
+    step = row_step(x)
+    parts = [_quantize_rows(x[r:r + step], seed, bits=bits, row0=r, offset=offset)
+             for r in range(0, max(x.shape[0], 1), step)]
     return torch.cat([c for c, _ in parts]), torch.cat([s for _, s in parts])
 
 
@@ -227,8 +235,9 @@ def quantize_pack_2d_ref(x: torch.Tensor, seed: int, *, bits: int, offset: int =
     :func:`quantize_2d_ref`."""
     x = x.to(torch.float32)
     words, scales = [], []
-    for r in range(0, max(x.shape[0], 1), ROW_CHUNK):
-        codes, scale = _quantize_rows(x[r:r + ROW_CHUNK], seed, bits=bits, row0=r,
+    step = row_step(x)
+    for r in range(0, max(x.shape[0], 1), step):
+        codes, scale = _quantize_rows(x[r:r + step], seed, bits=bits, row0=r,
                                       offset=offset)
         words.append(pack_codes(codes, bits=bits))
         scales.append(scale)
@@ -274,7 +283,9 @@ def unpack_dequant_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor,
                                acc_weight=1.0) -> torch.Tensor:
     """Plain version of kernel K2: ``aw*acc + code*(scale*(w*(1/L)))`` with
     the JAX kernel's association (``quant.py:231-236``); every product and
-    the sum rounded separately, as the kernel does."""
+    the sum rounded separately, as the kernel does.  A bfloat16 ``acc`` is
+    widened to f32 and the result rounded back (JAX's ``acc.astype(f32)``
+    -> kernel -> ``.astype(acc.dtype)``); so for every receive below."""
     aw, wl = axpy_weights(bits, weight, acc_weight)
     out = torch.empty_like(acc, dtype=torch.float32)
     for r in range(0, packed.shape[0], ROW_CHUNK):
@@ -282,7 +293,7 @@ def unpack_dequant_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor,
         inv = scale[sl].to(torch.float32) * wl
         code = unpack_codes(packed[sl], bits=bits).to(torch.float32)
         out[sl] = aw * acc[sl].to(torch.float32) + code * inv
-    return out
+    return out.to(acc.dtype)
 
 
 # ------------------------------------------------------------ sparse codec
@@ -353,8 +364,9 @@ def sparse_select_pack_2d_ref(x: torch.Tensor, seed: int, *, p: float, mode: str
     rows, cols = x.shape
     k, _, kpad, _ = sparse_geometry(cols, p)
     vals, words = [], []
-    for r in range(0, max(rows, 1), ROW_CHUNK):
-        v, sel = sparse_select_2d_ref(x[r:r + ROW_CHUNK], seed, k=k, mode=mode,
+    step = row_step(x)
+    for r in range(0, max(rows, 1), step):
+        v, sel = sparse_select_2d_ref(x[r:r + step], seed, k=k, mode=mode,
                                       value_dtype=value_dtype, row0=r, offset=offset)
         vals.append(v)
         words.append(sparse_pack_idx(sel, block=cols, kpad=kpad))
@@ -396,7 +408,7 @@ def sparse_scatter_axpy_2d_ref(values: torch.Tensor, packed: torch.Tensor,
             1, idx, True)
         out[sl] = aw * acc[sl].to(torch.float32) + torch.where(
             hit, w * dense, torch.zeros((), dtype=torch.float32, device=dense.device))
-    return out
+    return out.to(acc.dtype)
 
 
 # -------------------------------------------------------------- sign codec
@@ -437,8 +449,9 @@ def sign_pack_2d_ref(x: torch.Tensor, *, scale_mode: str = "mean"):
     f32 scale (rows, 1))."""
     x = x.to(torch.float32)
     words, scales = [], []
-    for r in range(0, max(x.shape[0], 1), ROW_CHUNK):
-        xc = x[r:r + ROW_CHUNK]
+    step = row_step(x)
+    for r in range(0, max(x.shape[0], 1), step):
+        xc = x[r:r + step]
         words.append(pack_uint((xc >= 0.0).to(torch.int64), bits=1))
         scales.append(sign_scale_2d(xc, scale_mode=scale_mode))
     return torch.cat(words), torch.cat(scales)
@@ -461,7 +474,7 @@ def unpack_sign_axpy_2d_ref(packed: torch.Tensor, scale: torch.Tensor, acc: torc
         sl = slice(r, r + ROW_CHUNK)
         sgn = unpack_uint(packed[sl], bits=1).to(torch.float32) * 2.0 - 1.0
         out[sl] = aw * acc[sl].to(torch.float32) + sgn * (scale[sl].to(torch.float32) * w)
-    return out
+    return out.to(acc.dtype)
 
 
 # ----------------------------------------------------------- low-rank codec
@@ -547,9 +560,9 @@ def lowrank_axpy_2d_ref(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *,
     ``w`` rounded to f32 as the JAX kernel's operand rounds them.  Leading
     dims run one slice at a time (bounds the temporaries at full width)."""
     aw, w = f32_scalar(acc_weight), f32_scalar(weight)
-    acc = acc.to(torch.float32)
+    dtype, acc = acc.dtype, acc.to(torch.float32)
     if acc.dim() == 2:
-        return aw * acc + w * _factor_matmul(p, v)
+        return (aw * acc + w * _factor_matmul(p, v)).to(dtype)
     lead = acc.shape[:-2]
     p = p.expand(*lead, *p.shape[-2:]).reshape(-1, *p.shape[-2:])
     v = v.expand(*lead, *v.shape[-2:]).reshape(-1, *v.shape[-2:])
@@ -557,7 +570,7 @@ def lowrank_axpy_2d_ref(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *,
     out = torch.empty_like(accf)
     for b in range(accf.shape[0]):
         out[b] = aw * accf[b] + w * _factor_matmul(p[b], v[b])
-    return out.reshape(acc.shape)
+    return out.reshape(acc.shape).to(dtype)
 
 
 # ------------------------------------------------------------- comparison

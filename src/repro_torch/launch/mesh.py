@@ -11,6 +11,13 @@ count, its device and the backend.
 * From :func:`spawn_ranks`: ``n`` new processes meet at a ``file://``
   rendezvous in a fresh temporary directory (no TCP port to race for).
 
+The production layouts of the JAX package's ``launch/mesh.py``
+(:func:`make_production_mesh`, :func:`derive_train_mesh`,
+:func:`derive_serve_mesh`) are :class:`LogicalMesh` es here: axis names and
+sizes and the device ids in the JAX mesh's pod-major order, touching no
+device.  The dryrun sizes its plans over them
+(:mod:`repro_torch.distributed.sharding`).
+
 ``backend`` is the caller's choice, never switched.  ``nccl`` takes one GPU a
 rank and raises when a host has more ranks than GPUs; ``gloo`` lets ranks
 share a GPU (on a one-card machine every rank runs on ``cuda:0``) and stages
@@ -24,8 +31,9 @@ import datetime
 import os
 import queue
 import tempfile
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.distributed.transport import TransportStats
@@ -46,6 +54,61 @@ class NodeGroup:
         import torch.distributed as dist
 
         dist.barrier()
+
+
+@dataclasses.dataclass(frozen=True)
+class LogicalMesh:
+    """A device layout by name: ``devices`` holds the device ids (0..size-1)
+    in an array whose shape is the axis sizes, as a JAX ``Mesh`` holds its
+    devices; nothing here touches a device."""
+    axis_names: Tuple[str, ...]
+    devices: np.ndarray
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def coords(self, device: int) -> Dict[str, int]:
+        """The axis coordinates of device id ``device``."""
+        where = np.argwhere(self.devices == device)
+        if len(where) != 1:
+            raise ValueError(f"device {device} is not in this {self.size}-device layout")
+        return dict(zip(self.axis_names, (int(i) for i in where[0])))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
+    """The 256-device (data 16, model 16) layout, or 512 with a pod axis of
+    2 outermost."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return LogicalMesh(axes, np.arange(int(np.prod(shape))).reshape(shape))
+
+
+def derive_train_mesh(mesh: LogicalMesh, n_nodes: int, tp: Optional[int] = None
+                      ) -> LogicalMesh:
+    """The same devices as (node, fsdp, model=tp), pod-major: with two pods
+    the pod axis is the outermost part of the node axis, so the gossip ring
+    crosses the slow links between pods.  ``tp`` defaults to the layout's
+    model width; a smaller one folds the spare factor into fsdp."""
+    total = mesh.size
+    tp = tp if tp is not None else mesh.devices.shape[-1]
+    if total % (n_nodes * tp):
+        raise ValueError(f"node={n_nodes} x tp={tp} must divide {total}")
+    fsdp = total // (n_nodes * tp)
+    return LogicalMesh(("node", "fsdp", "model"),
+                       mesh.devices.reshape(-1).reshape(n_nodes, fsdp, tp))
+
+
+def derive_serve_mesh(mesh: LogicalMesh, mp: int) -> LogicalMesh:
+    """The same devices as (dp, mp) for serving (no gossip axis)."""
+    total = mesh.size
+    if total % mp:
+        raise ValueError(f"mp={mp} must divide {total}")
+    return LogicalMesh(("dp", "mp"), mesh.devices.reshape(-1).reshape(total // mp, mp))
 
 
 def rank_device(backend: str, device, local_rank: int, local_n: int) -> torch.device:

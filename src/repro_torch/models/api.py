@@ -1,7 +1,8 @@
 """Public model API: every architecture behind one interface.
 
 The port of the JAX package's ``models/api.py``.  ``init`` takes an integer
-seed and a device where JAX takes a key; ``init_cache`` takes the device of
+seed and a device where JAX takes a key (``device="meta"`` builds the shapes
+alone); ``loss`` takes ``remat`` as JAX's does; ``init_cache`` takes the device of
 the caches; ``make_batch`` draws from a ``torch.Generator`` (on the device
 the batch is made on) where JAX draws from a key, so its numbers differ from
 JAX's for the same seed.
@@ -24,7 +25,7 @@ from repro_torch.tree import tree_leaves
 class Model:
     cfg: ArchConfig
     init: Callable[..., Any]         # (seed, *, device) -> params
-    loss: Callable[..., Any]         # (params, batch) -> (loss, metrics)
+    loss: Callable[..., Any]         # (params, batch, remat=False) -> (loss, metrics)
     logits: Callable[..., Any]       # (params, batch) -> logits (B, S, V)
     prefill: Callable[..., Any]      # (params, batch) -> last-position logits (B, 1, V)
     init_cache: Callable[..., Any]   # (B, capacity, window=None, *, device="cuda") -> caches
@@ -39,7 +40,7 @@ def build_model(cfg: ArchConfig) -> Model:
         return Model(
             cfg=cfg,
             init=lambda seed, *, device: ed.encdec_init(cfg, seed, device=device),
-            loss=lambda params, batch: ed.encdec_loss(cfg, params, batch),
+            loss=lambda params, batch, remat=False: ed.encdec_loss(cfg, params, batch, remat),
             logits=lambda params, batch: ed.encdec_logits(cfg, params, batch),
             prefill=lambda params, batch: ed.encdec_logits(cfg, params, batch, last_only=True),
             init_cache=lambda B, capacity, window=None, *, device="cuda":
@@ -50,7 +51,7 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(
         cfg=cfg,
         init=lambda seed, *, device: lm.lm_init(cfg, seed, device=device),
-        loss=lambda params, batch: lm.lm_loss(cfg, params, batch),
+        loss=lambda params, batch, remat=False: lm.lm_loss(cfg, params, batch, remat),
         logits=lambda params, batch: lm.lm_logits(cfg, params, batch["tokens"],
                                                   batch.get("extra_embeds")),
         prefill=lambda params, batch: _lm_prefill(cfg, params, batch),
@@ -65,6 +66,23 @@ def _lm_prefill(cfg: ArchConfig, params, batch):
     (the (B, S, V) logits are never made)."""
     h, _ = lm.lm_hidden(cfg, params, batch["tokens"], batch.get("extra_embeds"))
     return dense(h[:, -1:], params["lm_head"])[..., : cfg.vocab]
+
+
+def make_batch_specs(cfg: ArchConfig, batch: int, seq: int) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for one training batch (the dryrun's; nothing
+    is allocated): tokens and labels (B, S_text) int64, the port's token
+    dtype (JAX's are int32), and for a frontend ``extra_embeds`` (B,
+    n_tokens, dim) float32.  A vision frontend's patches take ``n_tokens``
+    of the ``seq`` positions."""
+    n_front = cfg.frontend.n_tokens if cfg.frontend else 0
+    s_text = seq - n_front if cfg.frontend and cfg.frontend.kind == "vision" else seq
+    meta = torch.device("meta")
+    specs = {"tokens": torch.empty((batch, s_text), dtype=torch.int64, device=meta),
+             "labels": torch.empty((batch, s_text), dtype=torch.int64, device=meta)}
+    if cfg.frontend:
+        specs["extra_embeds"] = torch.empty((batch, cfg.frontend.n_tokens, cfg.frontend.dim),
+                                            dtype=torch.float32, device=meta)
+    return specs
 
 
 def make_batch(cfg: ArchConfig, gen: torch.Generator, batch: int, seq: int

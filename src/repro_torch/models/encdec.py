@@ -10,6 +10,7 @@ and the cross K/V, computed once by :func:`encdec_prefill_cross`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -17,6 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
+    generator,
     COMPUTE_DTYPE,
     Params,
     _sinusoid,
@@ -31,7 +33,7 @@ from repro_torch.models.layers import (
     layernorm_init,
     sinusoidal_positions,
 )
-from repro_torch.models.lm import _layer, _layer_cache
+from repro_torch.models.lm import _layer, _layer_cache, run_layer, unstack
 
 
 @dataclasses.dataclass
@@ -43,8 +45,7 @@ class CrossCache:
 def encdec_init(cfg: ArchConfig, seed: int, *, device) -> Params:
     """Random float32 parameters from ``seed`` with the JAX package's keys
     and shapes (torch's values)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = generator(seed, device)
     d, E, L = cfg.d_model, (cfg.encoder_layers,), (cfg.n_layers,)
     return {
         "embed": embed_init(gen, cfg.vocab_padded, d, device=device),
@@ -71,44 +72,59 @@ def _heads(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(B, S, cfg.n_heads, cfg.hd)
 
 
-def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, T, d) -> encoder hidden (B, T, d)."""
+def _enc_layer(cfg: ArchConfig, h: torch.Tensor, lp: Params) -> torch.Tensor:
+    # bidirectional self-attention: no mask, no rope (sinusoid already added)
+    x = layernorm(h, lp["ln1"])
+    B, S, _ = x.shape
+    q, k, v = (_heads(cfg, dense(x, lp["attn"][w])) for w in ("wq", "wk", "wv"))
+    o = attn._sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device))
+    h = h + dense(o.reshape(B, S, -1), lp["attn"]["wo"])
+    return h + gelu_mlp(layernorm(h, lp["ln2"]), lp["mlp"])
+
+
+def encode(cfg: ArchConfig, params: Params, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """frames (B, T, d) -> encoder hidden (B, T, d); ``remat`` recomputes
+    each layer in the backward pass (:func:`~repro_torch.models.lm.run_layer`)."""
     T = frames.shape[1]
     h = frames.to(COMPUTE_DTYPE) + \
         sinusoidal_positions(T, cfg.d_model, device=frames.device).to(COMPUTE_DTYPE)
-    for l in range(cfg.encoder_layers):
-        lp = _layer(params["enc"], l)
-        # bidirectional self-attention: no mask, no rope (sinusoid already added)
-        x = layernorm(h, lp["ln1"])
-        B, S, _ = x.shape
-        q, k, v = (_heads(cfg, dense(x, lp["attn"][w])) for w in ("wq", "wk", "wv"))
-        o = attn._sdpa(q, k, v, torch.ones((S, S), dtype=torch.bool, device=x.device))
-        h = h + dense(o.reshape(B, S, -1), lp["attn"]["wo"])
-        h = h + gelu_mlp(layernorm(h, lp["ln2"]), lp["mlp"])
+    for lp in unstack(params["enc"]):
+        h = run_layer(functools.partial(_enc_layer, cfg), h, lp, remat)
     return layernorm(h, params["enc_ln"])
 
 
-def _decoder(cfg: ArchConfig, params: Params, tokens: torch.Tensor, enc_out: torch.Tensor):
+def _dec_layer(cfg: ArchConfig, mask: torch.Tensor, enc_out: torch.Tensor,
+               h: torch.Tensor, lp: Params) -> torch.Tensor:
+    x = layernorm(h, lp["ln1"])
+    B, S, _ = x.shape
+    q, k, v = (_heads(cfg, dense(x, lp["self"][w])) for w in ("wq", "wk", "wv"))
+    o = attn._sdpa(q, k, v, mask)
+    h = h + dense(o.reshape(B, S, -1), lp["self"]["wo"])
+    h = h + attn.cross_forward(layernorm(h, lp["ln2"]), enc_out, lp["cross"],
+                               n_heads=cfg.n_heads, head_dim=cfg.hd)
+    return h + gelu_mlp(layernorm(h, lp["ln3"]), lp["mlp"])
+
+
+def _decoder(cfg: ArchConfig, params: Params, tokens: torch.Tensor, enc_out: torch.Tensor,
+             remat: bool = False):
     S = tokens.shape[1]
     h = embed(tokens, params["embed"]) + \
         sinusoidal_positions(S, cfg.d_model, device=tokens.device).to(COMPUTE_DTYPE)
-    mask = attn.causal_mask(S, device=tokens.device)
-    for l in range(cfg.n_layers):
-        lp = _layer(params["dec"], l)
-        x = layernorm(h, lp["ln1"])
-        B = x.shape[0]
-        q, k, v = (_heads(cfg, dense(x, lp["self"][w])) for w in ("wq", "wk", "wv"))
-        o = attn._sdpa(q, k, v, mask)
-        h = h + dense(o.reshape(B, S, -1), lp["self"]["wo"])
-        h = h + attn.cross_forward(layernorm(h, lp["ln2"]), enc_out, lp["cross"],
-                                   n_heads=cfg.n_heads, head_dim=cfg.hd)
-        h = h + gelu_mlp(layernorm(h, lp["ln3"]), lp["mlp"])
+    layer = functools.partial(_dec_layer, cfg, attn.causal_mask(S, device=tokens.device),
+                              enc_out)
+    for lp in unstack(params["dec"]):
+        h = run_layer(layer, h, lp, remat)
     return layernorm(h, params["final_ln"])
 
 
-def encdec_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    enc_out = encode(cfg, params, batch["extra_embeds"])
-    h = _decoder(cfg, params, batch["tokens"], enc_out)
+def encdec_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+                remat: bool = False):
+    """The decoder's cross-entropy; ``remat`` recomputes each encoder and
+    decoder layer in the backward pass (the JAX package takes the flag and
+    ignores it: the loss and gradients are the same either way)."""
+    enc_out = encode(cfg, params, batch["extra_embeds"], remat)
+    h = _decoder(cfg, params, batch["tokens"], enc_out, remat)
     xent = chunked_softmax_xent(h, params["lm_head"], batch["labels"], batch.get("loss_mask"))
     zero = torch.zeros((), dtype=torch.float32, device=xent.device)
     return xent, {"xent": xent, "lb_loss": zero, "z_loss": zero}

@@ -18,6 +18,17 @@ Params = Dict[str, torch.Tensor]
 COMPUTE_DTYPE = torch.bfloat16
 
 
+def generator(seed: int, device) -> Optional[torch.Generator]:
+    """The init's generator on ``device``, seeded; ``None`` on the meta
+    device, which draws nothing (shapes only: the dryrun's parameter
+    specs)."""
+    if torch.device(device).type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *, device,
                scale: Optional[float] = None, lead: tuple = ()) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)

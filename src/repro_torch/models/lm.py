@@ -15,9 +15,10 @@ use.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
@@ -34,6 +35,7 @@ from repro_torch.models.layers import (
     gelu,
     gelu_mlp,
     gelu_mlp_init,
+    generator,
     layernorm,
     layernorm_init,
     rmsnorm,
@@ -41,6 +43,7 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_init,
 )
+from repro_torch.tree import leaf_items, tree_from_items
 
 
 def _norm_init(cfg: ArchConfig, d: int, *, device, lead: tuple = ()):
@@ -161,8 +164,7 @@ def lm_init(cfg: ArchConfig, seed: int, *, device) -> Params:
     """Random float32 parameters from ``seed`` (a torch.Generator on
     ``device``), with the JAX package's keys, shapes and init scales; the
     values are torch's, not threefry's."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = generator(seed, device)
     d = cfg.d_model
     p: Params = {
         # padded vocab: embedding rows and LM head columns
@@ -202,6 +204,15 @@ def _layer(tree: Any, idx) -> Any:
     return tree[idx]
 
 
+def unstack(tree: Any) -> List[Any]:
+    """The layers of a stacked tree, each leaf split by one ``torch.unbind``:
+    in the backward pass the layers' gradients are stacked once, where
+    indexing each layer (``tree[l]``) would write a zero tensor of the whole
+    stack for every layer, O(L^2) bytes at depth L."""
+    cols = [(p, torch.unbind(l, 0)) for p, l in leaf_items(tree)]
+    return [tree_from_items([(p, ls[i]) for p, ls in cols]) for i in range(_n_stacked(tree))]
+
+
 def _n_stacked(tree: Any, axis: int = 0) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
@@ -217,11 +228,27 @@ def _cast_weights(lp: Any) -> Any:
     return lp.to(COMPUTE_DTYPE) if (lp.dim() >= 2 and lp.dtype == torch.float32) else lp
 
 
-def _run_blocks(cfg: ArchConfig, h, stacked: Params, kind: str):
-    """Walk a stack of layers; returns h and the summed aux losses."""
+def run_layer(fn, h, lp, remat: bool):
+    """``fn(h, lp)``; with ``remat`` under ``torch.utils.checkpoint``, so the
+    layer keeps only its input for the backward pass and recomputes the
+    rest there (JAX's ``jax.checkpoint`` of a scanned block with
+    ``nothing_saveable``).  The recompute is the same arithmetic, so losses
+    and gradients are bit-equal either way."""
+    if not remat:
+        return fn(h, lp)
+    return torch.utils.checkpoint.checkpoint(fn, h, lp, use_reentrant=False)
+
+
+def _run_blocks(cfg: ArchConfig, h, stacked: Params, kind: str, remat: bool = False):
+    """Walk a stack of layers; returns h and the summed aux losses.  Each
+    layer casts its weights inside the recomputed region, as JAX's body."""
     lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
-    for l in range(_n_stacked(stacked)):
-        h, aux = _block_fwd(cfg, h, _cast_weights(_layer(stacked, l)), kind)
+
+    def block(hh, lp):
+        return _block_fwd(cfg, hh, _cast_weights(lp), kind)
+
+    for lp in unstack(stacked):
+        h, aux = run_layer(block, h, lp, remat)
         lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
     return h, lb, zl
 
@@ -233,9 +260,11 @@ def _shared_attn_fwd(cfg: ArchConfig, h, sa: Params):
 
 
 def lm_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
-              extra_embeds: Optional[torch.Tensor] = None):
+              extra_embeds: Optional[torch.Tensor] = None, remat: bool = False):
     """Token ids (+ optional frontend embeddings, prepended) -> final hidden
-    states (bf16) and the summed aux losses."""
+    states (bf16) and the summed aux losses.  ``remat`` checkpoints every
+    block of the main stacks (not the dense first layers ``blocks0`` or the
+    hybrid's shared attention, as in JAX)."""
     h = embed(tokens, params["embed"])
     if extra_embeds is not None:
         e = extra_embeds.to(COMPUTE_DTYPE)
@@ -246,27 +275,28 @@ def lm_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
     if cfg.hybrid_period:
         lay = HybridLayout.of(cfg)
         sa = _cast_weights(params["shared_attn"])
-        for i in range(lay.n_periods):
-            h, l2, z2 = _run_blocks(cfg, h, _layer(params["pm"], i), "ssm")
+        for period in unstack(params["pm"]):
+            h, l2, z2 = _run_blocks(cfg, h, period, "ssm", remat)
             lb, zl = lb + l2, zl + z2
             h = _shared_attn_fwd(cfg, h, sa)
         if lay.tail:
-            h, l2, z2 = _run_blocks(cfg, h, params["tail"], "ssm")
+            h, l2, z2 = _run_blocks(cfg, h, params["tail"], "ssm", remat)
             lb, zl = lb + l2, zl + z2
     else:
         if "blocks0" in params:
             # the dense first layers' aux (zeros) is not added, as in JAX
             h, _, _ = _run_blocks(cfg, h, params["blocks0"], "attn_dense_moe0")
-        h, lb, zl = _run_blocks(cfg, h, params["blocks"], _layer_kind(cfg))
+        h, lb, zl = _run_blocks(cfg, h, params["blocks"], _layer_kind(cfg), remat)
     h = _norm(cfg, h, params["final_ln"])
     return h, {"lb_loss": lb, "z_loss": zl}
 
 
-def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor]):
+def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
+            remat: bool = False):
     """batch: tokens (B,S_text), labels (B,S_text), optional
     extra_embeds/loss_mask.  The frontend positions carry no loss."""
     extra = batch.get("extra_embeds")
-    h, aux = lm_hidden(cfg, params, batch["tokens"], extra)
+    h, aux = lm_hidden(cfg, params, batch["tokens"], extra, remat)
     n_front = 0 if extra is None else extra.shape[1]
     xent = chunked_softmax_xent(h[:, n_front:], params["lm_head"], batch["labels"],
                                 batch.get("loss_mask"))

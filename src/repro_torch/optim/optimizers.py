@@ -59,7 +59,9 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0, nesterov: bool = False
             m.mul_(momentum).add_(g)
             eff = g + momentum * m if nesterov else m
             return -lr * eff
-        return -lr * g
+        # JAX's lr is a float32 array, so the update is float32 whatever the
+        # gradient's dtype (bf16 params under ECD with bf16 estimates)
+        return -lr * g.to(torch.float32)
 
     return Optimizer("sgd", init, update_leaf)
 

@@ -1,5 +1,7 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K3,
-K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b against their plain versions.
+K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b, and the bf16-accumulator
+variants of K2, K5b, K6c and K7b, against their plain versions; the
+dryrun's executed smoke on the card.
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -639,3 +641,65 @@ def test_rank_runtime_on_card_matches_stacked(cuda, tmp_path):
             for k in a.files:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         assert all(h["losses"] == s_h["losses"] for h in r_h)
+
+
+def _bf16_acc(rows, cols, device, seed=0):
+    """A bf16 accumulator with a zero row, -0.0 entries and a NaN."""
+    a = _x(rows, cols, device, seed=seed + 100).to(torch.bfloat16)
+    a[min(2, rows - 1), 3] = float("nan")
+    return a
+
+
+def _bf16_case(fn, plain, acc, counter):
+    """``fn(acc)`` (the bf16-accumulator kernel) and ``fn(acc, out=acc)``
+    bit-equal to ``plain(acc)``, with one launch each on ``counter``."""
+    before = counter.launches
+    got = fn(acc)
+    torch.cuda.synchronize()
+    want = plain(acc)
+    assert got.dtype == torch.bfloat16 and ref.same_bits(got, want)
+    inplace = acc.clone()
+    fn(inplace, out=inplace)
+    torch.cuda.synchronize()
+    assert ref.same_bits(inplace, want)
+    assert counter.launches == before + 2
+
+
+@pytest.mark.parametrize("rows,cols", [(64, 1024), (37, 256)])
+@pytest.mark.parametrize("acc_weight,weight", [(1.0, 1.0), (0.75, -0.5)])
+def test_bf16_accumulator_kernels_bit_equal(cuda, rows, cols, acc_weight, weight):
+    """K2, K5b, K6c and K7b with a bf16 accumulator against their plain
+    versions (the f32 plain version on the widened accumulator, rounded to
+    bf16), at a whole and a ragged fold; each counts under its own name."""
+    x = _x(rows, cols, cuda, seed=cols)
+    acc = _bf16_acc(rows, cols, cuda)
+    kw = dict(weight=weight, acc_weight=acc_weight)
+    words, scale = q.quantize_pack_2d(x, 7, bits=4)
+    _bf16_case(lambda a, out=None: q.unpack_dequant_axpy_2d(words, scale, a, bits=4, out=out,
+                                                            **kw),
+               lambda a: ref.unpack_dequant_axpy_2d_ref(words, scale, a, bits=4, **kw),
+               acc, q.UNPACK_DEQUANT_AXPY_2D_BF16)
+    signs, sscale = q.sign_pack_2d(x)
+    _bf16_case(lambda a, out=None: q.unpack_sign_axpy_2d(signs, sscale, a, out=out, **kw),
+               lambda a: ref.unpack_sign_axpy_2d_ref(signs, sscale, a, **kw),
+               acc, q.UNPACK_SIGN_AXPY_2D_BF16)
+    vals, idx = q.sparse_select_pack_2d(x, 7, p=0.05, mode="topk")
+    _bf16_case(lambda a, out=None: q.sparse_scatter_axpy_2d(vals, idx, a, out=out, **kw),
+               lambda a: ref.sparse_scatter_axpy_2d_ref(vals, idx, a, **kw),
+               acc, q.SPARSE_SCATTER_AXPY_2D_BF16)
+    v = torch.rand((cols, 2), device=cuda) - 0.5
+    p = lk.lowrank_project_2d(x, v)
+    _bf16_case(lambda a, out=None: lk.lowrank_axpy_2d(p, v, a, out=out, **kw),
+               lambda a: ref.lowrank_axpy_2d_ref(p, v, a, **kw),
+               acc, lk.LOWRANK_AXPY_2D_BF16)
+    with pytest.raises(TypeError):
+        q.unpack_dequant_axpy_2d(words, scale, acc.half(), bits=4, weight=1.0)
+
+
+def test_dryrun_smoke_on_card(cuda, capsys):
+    """``dryrun_smoke`` executes its 2 steps on the card."""
+    from repro_torch.launch.dryrun import dryrun_smoke
+    rec = dryrun_smoke("granite-3-2b", device="cuda")
+    out = capsys.readouterr().out
+    assert "[SMOKE OK] " in out and rec["n_devices"] == 1 and rec["steps"] == 2
+    assert torch.isfinite(torch.tensor(rec["loss"]))

@@ -122,13 +122,22 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     tq.dequantize_2d(codes, scale8, bits=8)
     tq.unpack_dequant_2d(words, scale, bits=4)
     tq.sparse_unpack_scatter_2d(vals, idx, cols=256)
+    xb = x.to(torch.bfloat16)                                     # the bf16-accumulator receives
+    tq.unpack_dequant_axpy_2d(words, scale, xb, bits=4, weight=1.0)
+    tq.unpack_sign_axpy_2d(signs, sign_scale, xb, weight=1.0)
+    tq.sparse_scatter_axpy_2d(vals, idx, xb, weight=1.0)
+    tq.lowrank_axpy_2d(p, torch.zeros((256, 2)), xb, weight=1.0)
     assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0,
                                   "quantize_2d": 0, "dequantize_2d": 0,
                                   "unpack_dequant_2d": 0,
                                   "sign_pack_2d": 0, "unpack_sign_axpy_2d": 0,
                                   "sparse_select_pack_2d": 0, "sparse_unpack_scatter_2d": 0,
                                   "sparse_scatter_axpy_2d": 0,
-                                  "lowrank_project_2d": 0, "lowrank_axpy_2d": 0}
+                                  "lowrank_project_2d": 0, "lowrank_axpy_2d": 0,
+                                  "unpack_dequant_axpy_2d_bf16": 0,
+                                  "unpack_sign_axpy_2d_bf16": 0,
+                                  "sparse_scatter_axpy_2d_bf16": 0,
+                                  "lowrank_axpy_2d_bf16": 0}
     for fn in tq.KERNEL_WRAPPERS:                                 # the counter is the wrapper's
         fn.launches = 3
     assert set(tq.launch_counts().values()) == {3}

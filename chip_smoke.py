@@ -42,7 +42,22 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    a NaN row; K6b at the ``sparse`` ``lm_head`` fold (p = 0.25 randk, k = 32,
    and p = 0.05 topk), the ``wk`` fold and a ragged one with f16 values, its
    rows holding zeros, -0.0 (a whole row, so -0.0 values are kept), a NaN
-   and ties.
+   and ties.  K6c's and K7b's paths at their edges (``k6c_edges``,
+   ``k7b_edges``), both accumulator types, each case logged with the path
+   it took: K6c at k 1, 8 (the rows path) and 9 (the slot-map path), f32
+   and f16 values, 1 and 200,003 rows, indices past the row at 384 columns;
+   K7b at ranks 1, 2, 4 (the rows path) and 3, 5, 128 (the scalar path),
+   rows 1 and 17, n 128 and 49408, cold and warm, a -0.0 dot on a -0.0 row;
+   each on an accumulator of its own, one a row into a buffer and one off
+   16-byte alignment (the scalar accesses), into a fresh ``out`` and in
+   place.  Beside each receive's time the same-bytes yardstick
+   ``torch.mul(acc, 1.0, out=out)`` (the accumulator's bytes, not the same
+   function), and for bf16 K7b ``torch.baddbmm`` on bf16 factors (the
+   nearest library call, not the same function); the registers and local
+   bytes of K6c's and K7b's kernel instances (``cudaFuncGetAttributes``).
+   ``--only kernels_sparse,kernels_lowrank`` (any of ``KERNEL_PHASES``)
+   builds and runs just those phases and prints no result: to time a
+   parent's kernels against a change's, one process a tree.
 3. train   — granite-3-2b at full width with its depth cut to one layer,
    8 nodes stacked on the card, ring, through
    ``repro_torch.launch.train.run_training``: DCD and ECD over ``quant:4``,
@@ -137,7 +152,8 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    ``quant:4``, CHOCO ``sign`` and ``sparse:0.05:topk``, DCD
    ``lowrank:2:warm``, 2 steps each, so that every bf16-accumulator kernel
    launches): per run the launches, step times, peak memory and the state's
-   bytes on the card, equal to the meta build's count; CHOCO's bf16
+   bytes on the card, equal to the meta build's count, and one more step
+   under ``torch.profiler`` for each kernel's device ms a step; CHOCO's bf16
    estimates exactly ``roll(hat_self, 1)``, DCD's bf16 replicas elementwise
    within the bound of their roundings from ``roll(X, 1)`` that a replica
    never updated would break (``ReplicaBound``); the runs' records through
@@ -195,6 +211,9 @@ def phase_build(build) -> None:
                  if "registers" in l or "Compiling entry" in l or l == "cached"]
         log(f"build {name}.cu: " + " | ".join(lines))
     log(f"build: {len(names)} libraries in {time.perf_counter() - t0:.1f} s")
+    for name in ("sparse", "lowrank"):
+        for inst, regs, local in build.kernel_attrs(name):
+            log(f"build {name}.cu {inst}: {regs} registers, {local} local bytes")
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -257,8 +276,8 @@ BF16_WEIGHTS = ((1.0, 1.0), (0.75, -0.5))
 KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "quantize_kernel",
                   "dequantize_kernel", "unpack_dequant_kernel", "sign_pack_kernel",
                   "unpack_sign_axpy_kernel", "sparse_select_pack_",
-                  "sparse_unpack_scatter_kernel", "sparse_scatter_axpy_kernel",
-                  "lowrank_project_kernel", "lowrank_axpy_kernel")
+                  "sparse_unpack_scatter_kernel", "sparse_scatter_axpy_",
+                  "lowrank_project_kernel", "lowrank_axpy_")
 
 
 def max_abs_err(a, b) -> float:
@@ -281,10 +300,11 @@ def edge_rows(x, ties: bool):
     return x
 
 
-def bf16_acc(torch, acc):
-    """A bfloat16 accumulator from ``acc`` with edge entries: a zero row,
-    -0.0 entries and a NaN (rows of the last two dims)."""
-    a = acc.to(torch.bfloat16)
+def bf16_acc(torch, acc, dtype=None):
+    """A bfloat16 (or ``dtype``) accumulator copied from ``acc`` with edge
+    entries: a zero row, -0.0 entries and a NaN (rows of the last two
+    dims)."""
+    a = acc.to(dtype or torch.bfloat16, copy=True)
     rows = a.view(-1, a.shape[-1])
     rows[0].zero_()
     rows[min(1, rows.shape[0] - 1), :7] = -0.0
@@ -330,11 +350,17 @@ def check_nan_row(torch, ref, name: str, label: str, got, want, bits: int, row: 
 
 
 def log_times(rec: dict, names) -> None:
+    """Each kernel's time at its ``lm_head`` fold beside its bound (and its
+    share of it), its plain version, its library call and, for the
+    receives, the same-bytes yardstick ``torch.mul(acc, 1.0, out=out)``
+    (it moves the accumulator's bytes, not the same function)."""
     for name in names:
         r = rec[name]
         lib = f", library {r['library_ms']:.4f} ms" if r.get("library_ms") is not None else ""
+        yard = f", yardstick torch.mul {r['yardstick_ms']:.4f} ms" if "yardstick_ms" in r else ""
         log(f"time {name} lm_head: kernel {r['ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
-            f"({r['bound'][1]}), plain {r['plain_ms']:.2f} ms{lib}")
+            f"({r['bound'][1]}, {r['bound'][0] / r['ms']:.1%} of it), plain "
+            f"{r['plain_ms']:.2f} ms{lib}{yard}")
 
 
 def phase_kernels(torch, q, ref, rec: dict, bits: int = 4) -> None:
@@ -536,6 +562,10 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
                 plain_ms=time_ms(torch, lambda: ref.sparse_scatter_axpy_2d_ref(
                     vals, idx, accb, weight=1.0, acc_weight=1.0), 2, 1),
                 bound=bound(rows * k * 4 + rows * W * 4 + 2 * n * 2, 3 * n))
+            rec["sparse_scatter_axpy_2d"]["yardstick_ms"] = time_ms(
+                torch, lambda: torch.mul(acc, 1.0, out=out), 10)
+            rec["sparse_scatter_axpy_2d_bf16"]["yardstick_ms"] = time_ms(
+                torch, lambda: torch.mul(accb, 1.0, out=outb), 10)
             del outb
             log_times(rec, ("sparse_select_pack_2d", "sparse_scatter_axpy_2d",
                             "sparse_scatter_axpy_2d_bf16"))
@@ -545,6 +575,81 @@ def phase_kernels_sparse(torch, q, ref, rec: dict) -> None:
             del out
         del x, vals, idx, acc, accb
         torch.cuda.empty_cache()
+    k6c_edges(torch, q, ref, rec)
+
+
+def check_views(torch, ref, rec: dict, name: str, base, run, plain, path, what: str,
+                weights=((1.0, 1.0), (0.5, -2.0)), signed_zero=None) -> None:
+    """``run(acc, out, aw, w)`` against ``plain(acc, aw, w)`` on each of
+    ``ref.offset_views(base)`` (its own, one row into a buffer, off 16-byte
+    alignment), into a fresh ``out`` and in place, at each ``(aw, w)`` of
+    ``weights``; ``signed_zero(out)``, where given, must be all -0.0 at
+    w > 0.  One log line with the path each view took (``path(acc,
+    out)``)."""
+    paths, ok, err = {}, True, 0.0
+    for view, acc in ref.offset_views(base).items():
+        paths[view] = path(acc, acc)
+        for aw, w in weights:
+            want = plain(acc, aw, w)
+            got = run(acc, None, aw, w)
+            run(acc, acc, aw, w)
+            torch.cuda.synchronize()
+            for g in (got, acc):
+                ok = ok and ref.same_bits(g, want)
+                err = max(err, max_abs_err(g, want))
+            if signed_zero is not None and w > 0:
+                ok = ok and bool(signed_zero(got).signbit().all())
+            acc.copy_(base)
+    rec[name]["err"] = max(rec[name]["err"], err)
+    log(f"kernel {name} edges ({what}; paths {paths}): bit_equal={ok} max_abs_err={err}")
+    assert ok, f"{name} disagrees with its plain version at its edges ({what})"
+
+
+def k6c_edges(torch, q, ref, rec: dict) -> None:
+    """K6c at its paths' edges against its plain version, both accumulator
+    types: k 1 and 8 (the rows path's edge) and 9 (the slot-map path) at
+    128 columns, f32 and f16 values, 1 row and 200,003 rows (no whole step
+    of the persistent grid); an index word holding indices >= cols at 384
+    columns (``ref.sparse_payload_past_cols``); each on an accumulator of
+    its own, one a row into a buffer and one off 16-byte alignment (the
+    slot-map path's scalar accesses), into a fresh ``out`` and in place."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2025)
+    lib = q.build.load("sparse")
+    names = {torch.float32: "sparse_scatter_axpy_2d",
+             torch.bfloat16: "sparse_scatter_axpy_2d_bf16"}
+    paths = {1: "rows", 0: "slot map"}
+    x = ref.sparse_selection_edge_rows(edge_rows(torch.randn(
+        (200003, 128), generator=gen, device=dev), ties=True), 5)
+    cases = []
+    for k in (1, 8, 9):
+        for vdt in (torch.float32, torch.float16):
+            for rows in (1, 200003):
+                cases.append((f"{rows}x128, k={k}, {vdt}", 128,
+                              q.sparse_select_pack_2d(x[:rows], 77, p=k / 128, mode="topk",
+                                                      value_dtype=vdt), None))
+    for vdt in (torch.float32, torch.float16):
+        sent, kept = ref.sparse_payload_past_cols(vdt, dev)
+        cases.append((f"5x384, indices past cols, {vdt}", 384, sent, kept))
+    for what, cols, (vals, idx), kept in cases:
+        k, kpad = vals.shape[1], idx.shape[1] * 32 // ref.idx_bits_for(cols)
+        pv, pi = kept if kept is not None else (vals, idx)
+        for adt, name in names.items():
+            base = bf16_acc(torch, torch.randn((vals.shape[0], cols), generator=gen,
+                                               device=dev), adt)
+            check_views(
+                torch, ref, rec, name, base,
+                lambda a, o, aw, w: q.sparse_scatter_axpy_2d(vals, idx, a, weight=w,
+                                                             acc_weight=aw, out=o),
+                lambda a, aw, w: ref.sparse_scatter_axpy_2d_ref(pv, pi, a, weight=w,
+                                                                acc_weight=aw),
+                lambda a, o: paths[lib.sparse_scatter_axpy_2d_path(cols, k, kpad, a.data_ptr(),
+                                                                   o.data_ptr())],
+                what, weights=((1.0, 1.0), (0.5, 0.75)) if kept is not None else
+                ((1.0, 1.0), (0.5, -2.0)))
+    del x, cases
+    torch.cuda.empty_cache()
 
 
 # K6's register instances (columns a lane C, rows a warp R) by the fold that
@@ -732,6 +837,47 @@ def phase_kernels_lowrank(torch, lk, ref, rec: dict) -> None:
             del v0, vw
         del m, acc, accb
         torch.cuda.empty_cache()
+    k7b_edges(torch, lk, ref, rec)
+
+
+def k7b_edges(torch, lk, ref, rec: dict) -> None:
+    """K7b at its paths' edges against its plain version, both accumulator
+    types: ranks 1, 2, 4 (the rows path) and 3, 5, 128 (the scalar path),
+    rows 1 and 17, n 128 and 49408, a batch of 3, cold (one factor at batch
+    stride 0) and warm; each on an accumulator of its own, one a row into a
+    buffer and one off 16-byte alignment (the scalar path at every rank),
+    into a fresh ``out`` and in place.  The factors are >= 0 and slab 0's
+    row 0 has P = -0.0 and a -0.0 accumulator: its dot is -0.0, so at w > 0
+    that row must stay -0.0 (a padded +0.0 product would make it +0.0)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1729)
+    lib = lk.build.load("lowrank")
+    names = {torch.float32: "lowrank_axpy_2d", torch.bfloat16: "lowrank_axpy_2d_bf16"}
+    paths = {1: "rows", 0: "scalar"}
+    batch = 3
+    for r in (1, 2, 3, 4, 5, 128):
+        for rows, n in ((1, 128), (17, 128), (1, 49408), (17, 49408)):
+            p = torch.randn((batch, rows, r), generator=gen, device=dev)
+            p[0, 0] = -0.0
+            factors = {"cold": torch.rand((n, r), generator=gen, device=dev).expand(batch, n, r),
+                       "warm": torch.rand((batch, n, r), generator=gen, device=dev)}
+            for adt, name in names.items():
+                base = bf16_acc(torch, torch.randn((batch, rows, n), generator=gen, device=dev),
+                                adt)
+                base[0, 0] = -0.0
+                for mode, v in factors.items():
+                    check_views(
+                        torch, ref, rec, name, base,
+                        lambda a, o, aw, w: lk.lowrank_axpy_2d(p, v, a, weight=w,
+                                                               acc_weight=aw, out=o),
+                        lambda a, aw, w: ref.lowrank_axpy_2d_ref(p, v, a, weight=w,
+                                                                 acc_weight=aw),
+                        lambda a, o: paths[lib.lowrank_axpy_2d_path(r, rows, a.data_ptr(),
+                                                                    o.data_ptr())],
+                        f"{batch}x{rows}x{n}, rank {r}, {mode}",
+                        signed_zero=lambda out: out[0, 0])
+    torch.cuda.empty_cache()
 
 
 def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc,
@@ -760,7 +906,15 @@ def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc
             p, v, accb, weight=1.0, acc_weight=1.0, out=outb), 10)
         t["K7b bf16 plain"] = time_ms(torch, lambda: ref.lowrank_axpy_2d_ref(
             p, v, accb, weight=1.0, acc_weight=1.0), 2, 1)
-        del outb
+        # the nearest library call, not the same function: its factors are
+        # rounded to bf16
+        pb, vtb = p.bfloat16(), vt.bfloat16()
+        t["K7b bf16 library (baddbmm on bf16 factors, not the same function)"] = time_ms(
+            torch, lambda: torch.baddbmm(accb, pb, vtb, beta=1.0, alpha=1.0), 10)
+        t["yardstick torch.mul f32"] = time_ms(torch, lambda: torch.mul(acc, 1.0, out=out), 10)
+        t["yardstick torch.mul bf16"] = time_ms(torch, lambda: torch.mul(accb, 1.0, out=outb),
+                                                10)
+        del outb, pb, vtb
     el = batch * rows * n
     b7a = bound(el * 4 + v_bytes + batch * rows * r * 4, 2 * el * r)
     b7b = bound(batch * rows * r * 4 + v_bytes + 2 * el * 4, (2 * r + 2) * el)
@@ -775,6 +929,8 @@ def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc
                                       library_ms=t["K7b library"], bound=b7b)
         rec["lowrank_axpy_2d_bf16"].update(ms=t["K7b bf16"], plain_ms=t["K7b bf16 plain"],
                                            bound=b7b16)
+        rec["lowrank_axpy_2d"]["yardstick_ms"] = t["yardstick torch.mul f32"]
+        rec["lowrank_axpy_2d_bf16"]["yardstick_ms"] = t["yardstick torch.mul bf16"]
         log_times(rec, ("lowrank_project_2d", "lowrank_axpy_2d", "lowrank_axpy_2d_bf16"))
     del out
 
@@ -1305,7 +1461,8 @@ def report_profile(prof, tag: str, steps: int, wall: float) -> None:
     for e in ranked[:12] + [e for e in ours if e not in ranked[:12]]:
         log(f"profile   {dev_us(e) / 1e3:10.2f} ms  {e.count:6d} launches  {e.key[:100]}")
     for e in ours:
-        log(f"profile {tag}: {e.key[:40]} {dev_us(e) / 1e3 / steps:.3f} ms a step "
+        name = e.key.split("namespace)::")[-1].split("(")[0][:64]    # with template arguments
+        log(f"profile {tag}: {name} {dev_us(e) / 1e3 / steps:.3f} ms a step "
             f"({e.count / steps:g} launches a step), of {busy / steps * 1e3:.1f} ms busy a step")
 
 
@@ -2172,10 +2329,13 @@ def phase_dryrun_plan(torch, q) -> dict:
     tokens a node a step.  Per run the launch counts zeroed before and read
     after, the state's bytes on the card (as built) equal to the meta
     build's count, peak memory, step times (host clock around a step ending
-    in a synchronize), and the shared-state invariants: CHOCO's bf16
+    in a synchronize), each kernel's device time in one more step under
+    ``torch.profiler`` (not timed), and the shared-state invariants: CHOCO's bf16
     ``hat{s}`` exactly ``roll(hat_self, s)``, DCD's bf16 ``rep{s}`` within
     :class:`ReplicaBound` of ``roll(X, s)``, a bound that a replica left at
     its initial value breaks; the records go to netsim's controller."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.configs import get_config
     from repro_torch.distributed.decentralized import init_dist_state, make_dist_train_step
     from repro_torch.distributed.gossip import make_gossip_plan
@@ -2219,9 +2379,20 @@ def phase_dryrun_plan(torch, q) -> dict:
             losses.append(float(metrics["loss"]))
             if bound is not None:
                 bound.advance(state)
+        tag = f"dryrun plan {EXEC_ARCH} ({EXEC_LAYERS} layer) {algo} {wire}"
+        # one more step, profiled and not timed: each kernel's device ms a step
+        batches = [make_batch(cfg, gen, 1, EXEC_SEQ) for _ in range(n)]
+        batch = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+        report_profile(prof, tag, 1, time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        if bound is not None:
+            bound.advance(state)
         counts = {k: v for k, v in q.launch_counts().items() if v}
         peak = torch.cuda.max_memory_allocated()
-        tag = f"dryrun plan {EXEC_ARCH} ({EXEC_LAYERS} layer) {algo} {wire}"
         aux = [l for a, t in state.aux.items() if a.split("+")[0] in ("rep", "hat")
                or a == "hat_self" for l in tree_leaves(t)]
         assert aux and all(l.dtype == torch.bfloat16 for l in aux), tag
@@ -2260,8 +2431,24 @@ def phase_dryrun_plan(torch, q) -> dict:
     return totals
 
 
+# the kernel phases ``--only`` runs; each takes (torch, the wrappers' module,
+# ref, rec), K7's ``kernels/lowrank.py`` and the others' ``kernels/quant.py``
+KERNEL_PHASES = {"kernels": phase_kernels, "kernels_sign": phase_kernels_sign,
+                 "kernels_sparse": phase_kernels_sparse, "kernels_decode": phase_kernels_decode,
+                 "kernels_sparse_decode": phase_kernels_sparse_decode,
+                 "kernels_lowrank": phase_kernels_lowrank}
+
+
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default="",
+                        help="comma-separated kernel phases of " + ", ".join(KERNEL_PHASES) +
+                        ": build, run just those (checks and times, logged) and print no "
+                        "result; to time two trees of the kernels' sources against each "
+                        "other, one process a tree")
+    only = [name for name in parser.parse_args().only.split(",") if name]
+    if any(name not in KERNEL_PHASES for name in only):
+        parser.error(f"--only takes {sorted(KERNEL_PHASES)}, got {only}")
     meta_cores = split_cores()
 
     import torch
@@ -2279,9 +2466,14 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     phase_build(build)
+    rec = {name: {"err": 0.0} for name in KERNELS}
+    if only:
+        for name in only:
+            KERNEL_PHASES[name](torch, lk if name == "kernels_lowrank" else q, ref, rec)
+        log(f"{','.join(only)}: {time.perf_counter() - t0:.1f} s; {gpu_name_and_power()}")
+        return 0
     meta_proc = start_meta_records(meta_cores)
     assert sorted(KERNELS) == sorted(q.launch_counts()), sorted(q.launch_counts())
-    rec = {name: {"err": 0.0} for name in KERNELS}
     phase_kernels(torch, q, ref, rec)
     phase_kernels_sign(torch, q, ref, rec)
     phase_kernels_sparse(torch, q, ref, rec)

@@ -30,7 +30,10 @@ _P, _I, _F, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint3
 _I64 = ctypes.c_longlong
 
 # C signature of every exported function: (argtypes), restype is int (for a
-# launcher, the cudaError_t of cudaGetLastError after the launch).
+# launcher, the cudaError_t of cudaGetLastError after the launch).  Besides
+# the launchers: K6's grid and K6c's and K7b's path for a shape without
+# launching, and the registers and local bytes of K6c's and K7b's kernel
+# instances (`kernel_attrs`).
 SIGNATURES = {
     "quant": {
         "quantize_pack_2d_launch": (_P, _P, _P, _I, _I, _I, _U32, _U32, _P),
@@ -53,11 +56,15 @@ SIGNATURES = {
         "sparse_scatter_axpy_2d_bf16_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                                                _P),
         "sparse_unpack_scatter_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "sparse_scatter_axpy_2d_path": (_I, _I, _I, _P, _P),
+        "sparse_kernel_attrs": (_I, _P, _P, _P, _I),
     },
     "lowrank": {
         "lowrank_project_2d_launch": (_P, _P, _P, _I, _I, _I, _I, _I64, _P),
         "lowrank_axpy_2d_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _F, _F, _P),
         "lowrank_axpy_2d_bf16_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I64, _F, _F, _P),
+        "lowrank_axpy_2d_path": (_I, _I, _P, _P),
+        "lowrank_kernel_attrs": (_I, _P, _P, _P, _I),
     },
 }
 
@@ -126,6 +133,22 @@ class LaunchCount:
     def __init__(self, name: str):
         self.__name__ = name
         self.launches = 0
+
+
+def kernel_attrs(name: str) -> list:
+    """(kernel instance, registers, local bytes) of every instance that
+    library ``name`` lists in its ``<name>_kernel_attrs`` query
+    (``cudaFuncGetAttributes``: local bytes are spills and stack)."""
+    query = getattr(load(name), f"{name}_kernel_attrs")
+    out, i = [], 0
+    while True:
+        regs, local, label = ctypes.c_int(), ctypes.c_int(), ctypes.create_string_buffer(96)
+        err = query(i, ctypes.byref(regs), ctypes.byref(local), label, len(label))
+        if err == -1:
+            return out
+        check_launch(f"{name}_kernel_attrs", err)
+        out.append((label.value.decode(), regs.value, local.value))
+        i += 1
 
 
 def check_launch(fn_name: str, err: int) -> None:

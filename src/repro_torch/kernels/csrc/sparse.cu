@@ -52,16 +52,40 @@
 // (src/repro/kernels/quant.py, `_sparse_scatter_axpy_kernel` +
 // `_sparse_idx_entries`).
 //   out = aw*acc + (hit ? w*value : +0.0) per lane; acc and out may be the
-//   same buffer (each element is read and then written by one thread).
+//   same buffer (each element is read and then written by one thread).  An
+//   index past cols is dropped, as the TPU kernel's compare drops it.
 //   Bound on this card: memory.  Per element 4 B of accumulator in and 4 B
-//   out; per row k values and the index words.
-//   Design: one warp per row.  The warp unpacks the k indices into a
-//   lane -> slot map in shared memory (an index past cols is dropped, as the
-//   TPU kernel's compare drops it), then one coalesced pass over the row
-//   writes every lane.  The bf16-accumulator variant
+//   out (2 + 2 for a bf16 accumulator); per row k values and the index words.
+//   What held the first design back (41% of its bound with a bf16
+//   accumulator, 67% in f32): one warp a 128-column row paid, in series,
+//   128 shared stores to clear a lane -> slot map, a dependent load of the
+//   index words, two __syncwarp and only then four scalar accumulator loads
+//   a lane, 256 B in flight for the warp before it retired; with 8 rows a
+//   CTA no warp overlapped one row's index latency with another row's
+//   stream.
+//   Design at the wire's block (128 columns), k <= 8 (one index group, the
+//   `sparse` wire's p 0.05) and 16-byte aligned acc and out: the rows path,
+//   with no shared memory and no barrier.  Sixteen threads share a row, 8
+//   columns each (one 16-byte vector of bf16, two of f32), so a warp holds 2
+//   rows; CTAs are persistent and each thread has kScatterInFlight rows in
+//   flight.  For all of them it first issues its accumulator vector load,
+//   the row's first one or two index words (one broadcast for the 16
+//   threads) and, on thread e < k, value e; none of these waits on
+//   another.  Then it decodes the k 7-bit indices in
+//   registers (loops unrolled to constant indices), keeps a 4-bit slot
+//   (entry + 1) for each of its 8 columns that an index hits, and fetches
+//   w*value of each slot from its thread by shuffle: 8 shuffles a row, the
+//   same for every lane, so a row's lanes never diverge around them.  (On
+//   the H100, four f32 columns a thread, one float4, ran slower; more rows
+//   in flight or fewer, and 4 or 16 warps a CTA, no faster.)
+//   Design elsewhere (k > 8 at 128 columns, other widths up to 8192, a view
+//   that is not 16-byte aligned): one warp a row builds the lane -> slot map
+//   in shared memory (`build_slot_map`, shared with K6b); each lane owns
+//   4-column quads, and its first kQuadsInFlight quads are loaded (16 B, or
+//   scalar accesses off alignment) before the map, so the index latency
+//   overlaps the stream.  The bf16-accumulator variant
 //   (`sparse_scatter_axpy_2d_bf16_launch`, the receive into bf16 estimates)
-//   is the same template on `__nv_bfloat16` (accum.cuh): 2 + 2 B of
-//   accumulator an element.
+//   is the same templates on `__nv_bfloat16` (accum.cuh).
 //
 // K6b `sparse_unpack_scatter` replaces the TPU kernel `sparse_unpack_scatter_2d`
 // (src/repro/kernels/quant.py, `_sparse_scatter_kernel`).
@@ -80,6 +104,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
@@ -577,27 +602,112 @@ __device__ __forceinline__ float sparse_value(const void* values, size_t o, int 
                      : static_cast<const float*>(values)[o];
 }
 
+// The slot-map path of K6c: one warp a row, lane l owning the 4-column quads
+// l, l + 32, ... (cols/128 of them), kQuadsInFlight at a time.
+constexpr int kQuadsInFlight = 4;
+
 template <typename Acc>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
 sparse_scatter_axpy_kernel(const void* __restrict__ values,
                            const uint32_t* __restrict__ idx_words, const Acc* acc,
                            Acc* out, int rows, int cols, int k, IdxStream st,
-                           int rows_per_cta, int half_values, float aw, float w) {
+                           int rows_per_cta, int half_values, float aw, float w, int vec) {
   extern __shared__ uint16_t slot_of[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp >= rows_per_cta) return;
   const int row = blockIdx.x * rows_per_cta + warp;
   if (row >= rows) return;
   uint16_t* slots = slot_of + warp * cols;
-  build_slot_map(idx_words + static_cast<size_t>(row) * st.words, st, k, cols, slots, lane);
   const size_t vbase = static_cast<size_t>(row) * k;
   const Acc* ar = acc + static_cast<size_t>(row) * cols;
   Acc* orow = out + static_cast<size_t>(row) * cols;
-  for (int l = lane; l < cols; l += 32) {
-    const uint16_t s = slots[l];
-    const float d = s != 0xFFFFu ? __fmul_rn(w, sparse_value(values, vbase + s, half_values))
-                                 : 0.0f;
-    accum::store(orow, l, __fadd_rn(__fmul_rn(aw, accum::load(ar, l)), d));
+  const int quads = cols / 128;                  // a lane's, the same on every lane
+  for (int q0 = 0; q0 < quads; q0 += kQuadsInFlight) {
+    accum::Vec<Acc, 4> a[kQuadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kQuadsInFlight; ++u)
+      if (q0 + u < quads) a[u] = accum::load_vec<4>(ar, 4 * (lane + 32 * (q0 + u)), vec);
+    if (q0 == 0)                                 // after the first loads are issued
+      build_slot_map(idx_words + static_cast<size_t>(row) * st.words, st, k, cols, slots, lane);
+#pragma unroll
+    for (int u = 0; u < kQuadsInFlight; ++u) {
+      if (q0 + u >= quads) break;
+      const int l0 = 4 * (lane + 32 * (q0 + u));
+      float o[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint16_t sl = slots[l0 + e];
+        const float d = sl != 0xFFFFu ? __fmul_rn(w, sparse_value(values, vbase + sl, half_values))
+                                      : 0.0f;
+        o[e] = __fadd_rn(__fmul_rn(aw, a[u].get(e)), d);
+      }
+      accum::store_vec<4>(orow, l0, o, vec);
+    }
+  }
+}
+
+// The rows path of K6c (128 columns, one index group, k <= kRowK): 16
+// threads a row, thread t of a row owning columns 8t..8t+7 (one 16-byte
+// access of bf16, two of f32); a warp's step is 2*kScatterInFlight rows,
+// row r0 + 2u + (lane >= 16).  Entry e's index sits at stream bit 7e.  Rows
+// past the last are computed on the last row (every lane takes part in
+// every shuffle) and not stored.
+constexpr int kScatterWarps = 8;
+constexpr int kScatterInFlight = 8;
+constexpr int kScatterCols = 8;                  // columns a thread
+
+template <typename Acc>
+__global__ void __launch_bounds__(kScatterWarps * 32)
+sparse_scatter_axpy_rows_kernel(const void* __restrict__ values,
+                                const uint32_t* __restrict__ idx_words, const Acc* acc,
+                                Acc* out, int rows, int k, int n_words, int half_values,
+                                float aw, float w) {
+  const int lane = threadIdx.x & 31, t = lane & 15, half = lane >> 4;
+  const int col0 = t * kScatterCols;
+  const long long steps = (static_cast<long long>(rows) + 2 * kScatterInFlight - 1) /
+                          (2 * kScatterInFlight);
+  const bool two_words = k > 4;                  // 7k > 32 bits
+  for (long long g = static_cast<long long>(blockIdx.x) * kScatterWarps + (threadIdx.x >> 5);
+       g < steps; g += static_cast<long long>(gridDim.x) * kScatterWarps) {
+    const int r0 = static_cast<int>(g * 2 * kScatterInFlight);
+    accum::Vec<Acc, kScatterCols> a[kScatterInFlight];
+    uint32_t w0[kScatterInFlight], w1[kScatterInFlight];
+    float val[kScatterInFlight];
+#pragma unroll
+    for (int u = 0; u < kScatterInFlight; ++u) {
+      const size_t row = static_cast<size_t>(min(r0 + 2 * u + half, rows - 1));
+      a[u] = accum::load_vec<kScatterCols>(acc, row * kRowCols + col0, true);
+      const uint32_t* wr = idx_words + row * n_words;
+      w0[u] = __ldg(wr);
+      w1[u] = two_words ? __ldg(wr + 1) : 0u;
+      val[u] = t < k ? sparse_value(values, row * k + t, half_values) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterInFlight; ++u) {
+      const float wv = __fmul_rn(w, val[u]);
+      uint32_t slots = 0u;                       // nibble c: entry + 1 hitting column col0 + c
+#pragma unroll
+      for (int e = 0; e < kRowK; ++e) {
+        if (e < k) {
+          const uint32_t idx =
+              (7 * e < 32 ? __funnelshift_r(w0[u], w1[u], 7 * e) : w1[u] >> (7 * e - 32)) &
+              0x7Fu;
+          const uint32_t c = idx - static_cast<uint32_t>(col0);
+          if (c < kScatterCols)
+            slots = (slots & ~(0xFu << (4 * c))) | static_cast<uint32_t>(e + 1) << (4 * c);
+        }
+      }
+      float o[kScatterCols];
+#pragma unroll
+      for (int c = 0; c < kScatterCols; ++c) {
+        const int nib = (slots >> (4 * c)) & 0xF;
+        const float d = __shfl_sync(kFullMask, wv, nib ? (lane & 16) + nib - 1 : lane);
+        o[c] = __fadd_rn(__fmul_rn(aw, a[u].get(c)), nib ? d : 0.0f);
+      }
+      const int row = r0 + 2 * u + half;
+      if (row < rows)
+        accum::store_vec<kScatterCols>(out, static_cast<size_t>(row) * kRowCols + col0, o, true);
+    }
   }
 }
 
@@ -740,6 +850,12 @@ int select_pack(const float* xf, void* values, uint32_t* words, int rows, int co
   return grid;
 }
 
+// K6c takes the rows path at 128 columns, one index group, k <= kRowK and a
+// 16-byte aligned acc and out (`vec`), else the slot-map path.
+bool scatter_rows_path(int cols, int k, const IdxStream& st, int vec) {
+  return cols == kRowCols && st.groups == 1 && k <= kRowK && vec;
+}
+
 template <typename Acc>
 int launch_scatter_axpy(const void* values, const void* idx_words, const void* acc, void* out,
                         int rows, int cols, int k, int kpad, int half_values, float aw,
@@ -748,14 +864,44 @@ int launch_scatter_axpy(const void* values, const void* idx_words, const void* a
   IdxStream st;
   if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad)
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto* words = static_cast<const uint32_t*>(idx_words);
+  const auto* a = static_cast<const Acc*>(acc);
+  auto* o = static_cast<Acc*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int vec =
+      ((reinterpret_cast<uintptr_t>(acc) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  if (scatter_rows_path(cols, k, st, vec)) {
+    const void* kernel = reinterpret_cast<const void*>(sparse_scatter_axpy_rows_kernel<Acc>);
+    const long long steps = (static_cast<long long>(rows) + 2 * kScatterInFlight - 1) /
+                            (2 * kScatterInFlight);
+    const int grid = persistent_grid(kernel, static_cast<int>(steps), kScatterWarps, 0);
+    sparse_scatter_axpy_rows_kernel<Acc><<<grid, kScatterWarps * 32, 0, s>>>(
+        values, words, a, o, rows, k, st.words, half_values, aw, w);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int rpc = rows_per_cta_for(cols);
   const size_t smem = static_cast<size_t>(rpc) * cols * sizeof(uint16_t);
   const int grid = (rows + rpc - 1) / rpc;
-  sparse_scatter_axpy_kernel<Acc><<<grid, rpc * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      values, static_cast<const uint32_t*>(idx_words), static_cast<const Acc*>(acc),
-      static_cast<Acc*>(out), rows, cols, k, st, rpc, half_values, aw, w);
+  sparse_scatter_axpy_kernel<Acc><<<grid, rpc * 32, smem, s>>>(
+      values, words, a, o, rows, cols, k, st, rpc, half_values, aw, w, vec);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Every K6c kernel instance, for `sparse_kernel_attrs`
+struct KernelEntry {
+  const char* name;
+  const void* fn;
+};
+const KernelEntry kScatterAxpyKernels[] = {
+    {"sparse_scatter_axpy_rows_kernel<float>",
+     reinterpret_cast<const void*>(sparse_scatter_axpy_rows_kernel<float>)},
+    {"sparse_scatter_axpy_rows_kernel<bf16>",
+     reinterpret_cast<const void*>(sparse_scatter_axpy_rows_kernel<__nv_bfloat16>)},
+    {"sparse_scatter_axpy_kernel<float>",
+     reinterpret_cast<const void*>(sparse_scatter_axpy_kernel<float>)},
+    {"sparse_scatter_axpy_kernel<bf16>",
+     reinterpret_cast<const void*>(sparse_scatter_axpy_kernel<__nv_bfloat16>)},
+};
 
 }  // namespace
 
@@ -821,4 +967,32 @@ extern "C" int sparse_unpack_scatter_2d_launch(const void* values, const void* i
       values, static_cast<const uint32_t*>(idx_words), static_cast<float*>(out), rows, cols,
       k, st, rpc, half_values);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The path K6c takes for (cols, k, kpad) with acc and out at these
+// addresses, without launching: 1 the rows path, 0 the slot-map path, -1 a
+// shape the launcher refuses.
+extern "C" int sparse_scatter_axpy_2d_path(int cols, int k, int kpad, const void* acc,
+                                           const void* out) {
+  IdxStream st;
+  if (!stream_for(cols, kpad, &st) || k < 1 || k > kpad) return -1;
+  const int vec =
+      ((reinterpret_cast<uintptr_t>(acc) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  return scatter_rows_path(cols, k, st, vec) ? 1 : 0;
+}
+
+// Registers and local (spill) bytes of K6c's kernel instance i, from
+// cudaFuncGetAttributes, and its name (at most len - 1 characters): 0, a
+// CUDA error, or -1 past the last instance.
+extern "C" int sparse_kernel_attrs(int i, int* regs, int* local_bytes, char* name, int len) {
+  const int n = static_cast<int>(sizeof(kScatterAxpyKernels) / sizeof(kScatterAxpyKernels[0]));
+  if (i < 0 || i >= n) return -1;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kScatterAxpyKernels[i].fn);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  std::strncpy(name, kScatterAxpyKernels[i].name, len - 1);
+  name[len - 1] = '\0';
+  return 0;
 }

@@ -593,6 +593,43 @@ def sparse_selection_edge_rows(x, first: int):
     return x
 
 
+def offset_views(t: torch.Tensor) -> dict:
+    """``t``'s values three ways, each in a buffer of its own, for the
+    receive kernels' paths: ``own``, a contiguous copy; ``row1``, a view one
+    row (of the last dim) into a larger buffer, 16-byte aligned when a row
+    is; ``off1``, a view one element into a larger buffer, off 16-byte
+    alignment for a 2- or 4-byte type."""
+    row, numel = t.shape[-1], t.numel()
+    views = {"own": t.clone()}
+    for name, start in (("row1", row), ("off1", 1)):
+        flat = torch.zeros(numel + 2 * row, dtype=t.dtype, device=t.device)
+        views[name] = flat[start:start + numel].view(t.shape)
+        views[name].copy_(t)
+    return views
+
+
+def sparse_payload_past_cols(value_dtype, device, cols: int = 384):
+    """A K6c payload of 5 rows at ``cols`` (9-bit indices at 384, which can
+    name a column past the row; 7 bits at 128 cannot) whose last row holds
+    the indices 450 and 511 >= cols, and the payload the kernel must act as:
+    those entries pointed at columns no entry hits, with the value +0.0.
+    For a weight > 0 their addend ``w*(+0.0)`` is a miss's +0.0, so the
+    plain version (which cannot take an index past the row) gives the
+    kernel's result.  Returns ((values, words), (kept values, kept words))."""
+    idx = torch.tensor([[3, 200, 383], [0, 1, 2], [383, 382, 381], [10, 20, 30],
+                        [5, 450, 511]])
+    gen = torch.Generator()
+    gen.manual_seed(cols)
+    vals = torch.randn((idx.shape[0], idx.shape[1]), generator=gen).to(value_dtype)
+    cpg, _ = stream_geometry(idx_bits_for(cols))
+    kpad = -(-idx.shape[1] // cpg) * cpg
+    kept_idx, kept_vals = idx.clone(), vals.clone()
+    kept_idx[4, 1:] = torch.tensor([100, 101])
+    kept_vals[4, 1:] = 0.0
+    return tuple((v.to(device), sparse_pack_idx(i, block=cols, kpad=kpad).to(device))
+                 for v, i in ((vals, idx), (kept_vals, kept_idx)))
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """The kernels' equality contract with their plain versions: same shape,
     dtype and bits, any NaN matching any NaN (a NaN's payload bits are not

@@ -11,6 +11,7 @@ every pytest-xdist worker collects the same tests.  Without a card they skip.
 This file imports no JAX: the plain PyTorch versions are the reference here.
 """
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -255,6 +256,76 @@ def test_sparse_scatter_axpy_kernel_bit_equal(cuda, value_dtype, acc_weight, wei
     assert ref.same_bits(acc, want)
 
 
+def _acc_views(shape, dtype, device, seed):
+    """An accumulator with zeros, -0.0 and a NaN, as ``ref.offset_views``:
+    its own, one row into a buffer, one element into a buffer."""
+    n_rows = math.prod(shape) // shape[-1]
+    acc = _x(max(n_rows, 2), shape[-1], device, seed=seed)[:n_rows].to(dtype)
+    acc.view(-1)[-5] = float("nan")
+    views = ref.offset_views(acc.view(shape))
+    assert views["off1"].data_ptr() % 16 != 0
+    assert views["own"].data_ptr() % 16 == 0 and views["row1"].data_ptr() % 16 == 0
+    return views
+
+
+def _k6c_path(cols, k, kpad, acc, out):
+    return build.load("sparse").sparse_scatter_axpy_2d_path(cols, k, kpad, acc.data_ptr(),
+                                                            out.data_ptr())
+
+
+@pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("k", [1, 8, 9])
+@pytest.mark.parametrize("rows", [1, 33, 200003])
+def test_sparse_scatter_axpy_paths_bit_equal(cuda, acc_dtype, value_dtype, k, rows):
+    """K6c at the wire's block on K6's payloads: k = 1 and 8 take the rows
+    path (up to its edge), k = 9 the slot-map path; row counts that fill no
+    whole step of the persistent grid; an accumulator of its own, one a row
+    into a buffer, one off 16-byte alignment (the slot-map path's scalar
+    accesses); a fresh ``out`` and ``out=acc``."""
+    cols = 128
+    x = ref.sparse_selection_edge_rows(_edge_rows(_x(max(rows, 10), cols, cuda, seed=k)), 4)
+    x = x[:rows]
+    vals, idx = q.sparse_select_pack_2d(x, 21, p=k / cols, mode="topk", value_dtype=value_dtype)
+    assert vals.shape[1] == k
+    kpad = idx.shape[1] * 32 // ref.idx_bits_for(cols)
+    counter = q.SPARSE_SCATTER_AXPY_2D_BF16 if acc_dtype == torch.bfloat16 \
+        else q.sparse_scatter_axpy_2d
+    for name, acc in _acc_views((rows, cols), acc_dtype, cuda, seed=rows + k).items():
+        for aw, w in ((1.0, 1.0), (0.75, -0.5)):
+            want = ref.sparse_scatter_axpy_2d_ref(vals, idx, acc, weight=w, acc_weight=aw)
+            fresh = torch.empty_like(acc)
+            rows_path = k <= 8 and name != "off1"
+            assert _k6c_path(cols, k, kpad, acc, fresh) == int(rows_path), name
+            before = counter.launches
+            got = q.sparse_scatter_axpy_2d(vals, idx, acc, weight=w, acc_weight=aw, out=fresh)
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            assert ref.same_bits(got, want), (name, aw, w)
+            inplace = acc.clone() if name == "own" else acc
+            saved = acc.clone()
+            assert _k6c_path(cols, k, kpad, inplace, inplace) == int(rows_path), name
+            q.sparse_scatter_axpy_2d(vals, idx, inplace, weight=w, acc_weight=aw, out=inplace)
+            torch.cuda.synchronize()
+            assert ref.same_bits(inplace, want), (name, "in place", aw, w)
+            acc.copy_(saved)
+
+
+@pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("value_dtype", [torch.float32, torch.float16])
+def test_sparse_scatter_axpy_drops_an_index_past_cols(cuda, acc_dtype, value_dtype):
+    """A constructed index word holding indices >= cols
+    (``ref.sparse_payload_past_cols``): the kernel drops them, on the
+    slot-map path's vector and scalar accesses."""
+    (vals, packed), (kept_vals, kept) = ref.sparse_payload_past_cols(value_dtype, cuda)
+    rows, cols = vals.shape[0], 384
+    for name, acc in _acc_views((rows, cols), acc_dtype, cuda, seed=7).items():
+        want = ref.sparse_scatter_axpy_2d_ref(kept_vals, kept, acc, weight=0.75, acc_weight=0.5)
+        got = q.sparse_scatter_axpy_2d(vals, packed, acc, weight=0.75, acc_weight=0.5)
+        torch.cuda.synchronize()
+        assert ref.same_bits(got, want), name
+
+
 @pytest.mark.parametrize("spec", ["sign", "sparse:0.05:topk", "sparse:0.25:randk:256"])
 def test_wire_choco_round_on_card_matches_cpu(cuda, spec):
     """Encode + in-place decode of a stacked ragged leaf on the card equals
@@ -345,6 +416,49 @@ def test_lowrank_axpy_kernel_bit_equal(cuda, rank, batch, rows, n, acc_weight, w
         inplace = acc.clone()
         lk.lowrank_axpy_2d(p, v, inplace, weight=weight, acc_weight=acc_weight, out=inplace)
         assert ref.same_bits(inplace, want), mode
+
+
+@pytest.mark.parametrize("acc_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rank", [1, 2, 3, 4, 5, 128])
+@pytest.mark.parametrize("rows,n", [(1, 128), (17, 128), (1, 49408), (17, 49408)])
+def test_lowrank_axpy_paths_bit_equal(cuda, acc_dtype, rank, rows, n):
+    """K7b's rows path (ranks 1, 2, 4 on 16-byte aligned views) and scalar
+    path (ranks 3, 5, 128, and any rank off alignment), cold (one factor at
+    batch stride 0) and warm, into a fresh ``out`` and in place.  Factors
+    are >= 0, so slab 0's row 0, whose P is -0.0, has a -0.0 dot; with a
+    -0.0 accumulator row and w > 0 it must stay -0.0 (a padded +0.0 product
+    would make it +0.0)."""
+    batch = 3
+    g = torch.Generator(device=cuda)
+    g.manual_seed(rank * 131 + rows + n)
+    p = torch.randn((batch, rows, rank), generator=g, device=cuda)
+    p[0, 0] = -0.0
+    factors = {"cold": torch.rand((n, rank), generator=g, device=cuda).expand(batch, n, rank),
+               "warm": torch.rand((batch, n, rank), generator=g, device=cuda)}
+    lib = build.load("lowrank")
+    counter = lk.LOWRANK_AXPY_2D_BF16 if acc_dtype == torch.bfloat16 else lk.lowrank_axpy_2d
+    for name, acc in _acc_views((batch, rows, n), acc_dtype, cuda, seed=rank + n).items():
+        acc[0, 0] = -0.0
+        rows_path = rank in (1, 2, 4) and name != "off1"
+        for mode, v in factors.items():
+            for aw, w in ((1.0, 1.0), (0.5, -2.0)):
+                want = ref.lowrank_axpy_2d_ref(p, v, acc, weight=w, acc_weight=aw)
+                fresh = torch.empty_like(acc)
+                assert lib.lowrank_axpy_2d_path(rank, rows, acc.data_ptr(),
+                                                fresh.data_ptr()) == int(rows_path), name
+                before = counter.launches
+                got = lk.lowrank_axpy_2d(p, v, acc, weight=w, acc_weight=aw, out=fresh)
+                torch.cuda.synchronize()
+                assert counter.launches == before + 1
+                assert ref.same_bits(got, want), (name, mode, aw, w)
+                if w > 0:
+                    assert bool(torch.signbit(got[0, 0]).all()), (name, mode, "-0.0 row")
+                inplace = acc.clone() if name == "own" else acc
+                saved = acc.clone()
+                lk.lowrank_axpy_2d(p, v, inplace, weight=w, acc_weight=aw, out=inplace)
+                torch.cuda.synchronize()
+                assert ref.same_bits(inplace, want), (name, mode, "in place", aw, w)
+                acc.copy_(saved)
 
 
 @pytest.mark.parametrize("spec", ["lowrank:2", "lowrank:4"])

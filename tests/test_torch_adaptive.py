@@ -21,6 +21,7 @@ from repro.models.api import build_model as jbuild
 from repro_torch.convert import params_from_jax
 from repro_torch.distributed import wire as tw
 from repro_torch.tree import tree_leaves
+from test_torch_families import one_torch_thread  # noqa: F401
 
 N = 4
 MIXED_SPEC = "adaptive:4096:small=fp16:large=lowrank:2:leaf.embed=quant:4"

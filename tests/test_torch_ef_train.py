@@ -34,6 +34,7 @@ from repro_torch.models.api import build_model as tbuild
 from repro_torch.optim import sgd as tsgd
 from repro_torch.optim.schedules import linear_warmup_cosine as tsched
 from repro_torch.tree import tree_leaves
+from test_torch_families import one_torch_thread  # noqa: F401
 
 N, B, S, LR, STEPS, GAMMA = 4, 2, 16, 0.05, 2, 0.5
 

@@ -39,6 +39,7 @@ from repro_torch.optim import sgd as tsgd
 from repro_torch.optim.optimizers import OptState
 from repro_torch.optim.schedules import constant as tconstant
 from repro_torch.tree import tree_leaves
+from test_torch_families import one_torch_thread  # noqa: F401
 
 N, LR, STEP, GAMMA = 8, 0.05, 3, 0.5
 SHAPES = {"w": (N, 4, 300), "b": (N, 96)}   # ragged block fold; off-gate 96-wide leaf

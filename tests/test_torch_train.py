@@ -39,6 +39,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import sgd as tsgd
 from repro_torch.optim.schedules import linear_warmup_cosine as tsched
 from repro_torch.tree import tree_leaves
+from test_torch_families import one_torch_thread  # noqa: F401
 
 N, B, S, LR, STEPS = 4, 2, 16, 0.05, 2
 

@@ -86,6 +86,16 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    consensus distances.
 5. quickstart — the paper's Fig. 1 table (``repro_torch.examples.quickstart``)
    on the card, held to the JAX package's test thresholds.
+   gossip_reference — the runtime and ``repro_torch.core.GossipReference``
+   side by side at the train phase's width on a ring of 4 nodes, SGD at a
+   constant lr, 3 steps each of DCD ``quant:4`` and CHOCO ``sign`` (gamma
+   0.7) at drop 0.2 and DCD ``lowrank:2:warm``: params within 1e-5 after
+   every step, the reference's launches a step (its sends and dense decodes,
+   no receive kernel), its step time and peak memory; then
+   ``repro_torch.examples.compare_compression`` on the card with
+   ``--pareto``, ``--lowrank``, ``--drop-rate 0.2`` and ``--error-feedback
+   --algo choco --wire sign`` (``--quick``), whose gates fail the run.
+   ``--only gossip_reference`` runs just this phase and prints no result.
 6. plans — the rest of the runtime at the train phase's width (``PLAN_RUNS``):
    R1 naive ``quant:4`` on a chain with drops at 0.1 (K1 sends, K4b decodes
    every neighbour densely), R2 DCD ``quant:8`` on ``full_logn`` (three
@@ -1374,6 +1384,125 @@ def phase_stacked(torch, q, algo: str, comp, per_step: dict, steps: int = 2) -> 
     return counts
 
 
+# (algo, wire, drop, gamma, {kernel: the reference's launches a step}): sends
+# and dense decodes only; the sign and lowrank decodes are plain torch, and
+# lowrank's 1-D leaf (final_ln) rides fp16
+GOSSIP_REFERENCE_RUNS = (
+    ("dcd", "quant:4", "0.2:4", 0.5, {"quantize_pack_2d": 12, "unpack_dequant_2d": 12}),
+    ("choco", "sign", "0.2:4", 0.7, {"sign_pack_2d": 12}),
+    ("dcd", "lowrank:2:warm", None, 0.5, {"lowrank_project_2d": 11}),
+)
+GOSSIP_REFERENCE_NODES, GOSSIP_REFERENCE_STEPS, GOSSIP_REFERENCE_ATOL = 4, 3, 1e-5
+# compare_compression's gated and failure modes, in process on the card
+COMPARE_RUNS = (["--quick", "--pareto"], ["--quick", "--lowrank"],
+                ["--quick", "--drop-rate", "0.2"],
+                ["--quick", "--error-feedback", "--algo", "choco", "--wire", "sign"])
+
+
+def phase_gossip_reference(torch, q) -> dict:
+    """(a) The runtime against ``GossipReference`` side by side at full
+    width: granite-3-2b with one layer on a ring of 4 nodes, SGD at a
+    constant lr, ``GOSSIP_REFERENCE_STEPS`` steps of each run of
+    ``GOSSIP_REFERENCE_RUNS``.  The runtime is ``make_dist_train_step``; the
+    reference takes ``_node_grads`` of its own params on the same batches.
+    Params within ``GOSSIP_REFERENCE_ATOL`` after every step (the largest
+    difference logged); the reference's launches a step, counted alone, are
+    its sends and dense decodes and no receive kernel; its step time (host
+    clock, ending in a synchronize) and the peak memory during its step,
+    with the runtime's state resident, are logged.  Deterministic algorithms
+    are on, so that the two sides' gradients of equal params are equal.
+    (b) ``compare_compression``'s modes of ``COMPARE_RUNS`` on the card; a
+    gate's ``SystemExit`` fails the run."""
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import GossipReference
+    from repro_torch.data import DataConfig, stacked_node_batches
+    from repro_torch.distributed.decentralized import (
+        _node_grads, init_dist_state, make_dist_train_step)
+    from repro_torch.distributed.gossip import make_gossip_plan
+    from repro_torch.examples import compare_compression
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+    from repro_torch.tree import leaf_items, tree_from_items, tree_leaves
+
+    t_phase = time.perf_counter()
+    n, lr = GOSSIP_REFERENCE_NODES, 3e-3
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
+    model = build_model(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=8 * n, n_shards=n, seed=0)
+    plan = make_gossip_plan("ring", n)
+    totals: dict = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            for algo, wire, drop, gamma, per_step in GOSSIP_REFERENCE_RUNS:
+                tag = f"gossip_reference {algo} {wire} drop={drop}"
+                torch.cuda.empty_cache()
+                params0 = model.init(0, device="cuda")
+                ds = init_dist_state(algo, params0, plan, sgd(), drop=drop, wire=wire)
+                dstep = make_dist_train_step(model.loss, algo, sgd(), wire, plan, constant(lr),
+                                             gamma=gamma, drop=drop)
+                ref = GossipReference(name=algo, plan=plan, wire=wire, drop=drop, gamma=gamma)
+                rs, rstep = ref.init(params0), ref.step_fn()
+                del params0
+                paths = [p for p, _ in leaf_items(rs.params)]
+                diffs, ref_s, ref_peak, ref_counts, run_counts = [], [], [], [], []
+                for t in range(GOSSIP_REFERENCE_STEPS):
+                    batch = stacked_node_batches(dc, t, device="cuda")
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    q.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    _, _, grads = _node_grads(model.loss, rs.params, batch)
+                    rs = rstep(rs, tree_from_items(list(zip(paths, grads))), t, lr)
+                    del grads
+                    torch.cuda.synchronize()
+                    ref_s.append(time.perf_counter() - t0)
+                    ref_counts.append({k: v for k, v in q.launch_counts().items() if v})
+                    ref_peak.append(torch.cuda.max_memory_allocated())
+                    add(ref_counts[-1])
+                    q.reset_launch_counts()
+                    ds, _ = dstep(ds, batch)
+                    torch.cuda.synchronize()
+                    run_counts.append({k: v for k, v in q.launch_counts().items() if v})
+                    add(run_counts[-1])
+                    diffs.append(max(float((a - b).abs().max()) for a, b in
+                                     zip(tree_leaves(ds.params), tree_leaves(rs.params))))
+                log(f"{tag}: granite-3-2b 1 layer, {n} nodes, ring, lr {lr}: max |runtime - "
+                    f"reference| params per step {diffs}")
+                log(f"{tag}: reference step_s={ref_s} peak_memory_allocated per step "
+                    f"{ref_peak} B ({max(ref_peak) / 2**30:.2f} GiB, runtime state resident); "
+                    f"reference launches {ref_counts[0]} a step; runtime {run_counts[0]}")
+                assert all(d <= GOSSIP_REFERENCE_ATOL for d in diffs), (tag, diffs)
+                assert all(c == per_step for c in ref_counts), (tag, ref_counts, per_step)
+                del ds, rs, dstep, rstep
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    torch.cuda.empty_cache()
+    log(f"gossip_reference (a): {time.perf_counter() - t_phase:.1f} s")
+    for argv in COMPARE_RUNS:
+        t0 = time.perf_counter()
+        q.reset_launch_counts()
+        rows = compare_compression.main(argv + ["--device", "cuda"])
+        counts = {k: v for k, v in q.launch_counts().items() if v}
+        add(counts)
+        log(f"gossip_reference compare_compression {' '.join(argv)}: "
+            f"{time.perf_counter() - t0:.1f} s, launches {counts}, result {rows}")
+        if "--pareto" not in argv:
+            assert all(math.isfinite(v) for *_, v in rows), (argv, rows)
+    log(f"gossip_reference: {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 def phase_quickstart(torch, q) -> dict:
     """The paper's Fig. 1 on the card, held to the JAX package's thresholds
     (tests/test_algorithms.py): dpsgd and 8-bit DCD within 1.2x the optimal
@@ -2437,18 +2566,20 @@ KERNEL_PHASES = {"kernels": phase_kernels, "kernels_sign": phase_kernels_sign,
                  "kernels_sparse": phase_kernels_sparse, "kernels_decode": phase_kernels_decode,
                  "kernels_sparse_decode": phase_kernels_sparse_decode,
                  "kernels_lowrank": phase_kernels_lowrank}
+# the path phases ``--only`` runs; each takes (torch, the wrappers' module)
+PATH_PHASES = {"gossip_reference": phase_gossip_reference}
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default="",
-                        help="comma-separated kernel phases of " + ", ".join(KERNEL_PHASES) +
-                        ": build, run just those (checks and times, logged) and print no "
-                        "result; to time two trees of the kernels' sources against each "
-                        "other, one process a tree")
+                        help="comma-separated phases of " + ", ".join(KERNEL_PHASES) + ", " +
+                        ", ".join(PATH_PHASES) + ": build, run just those (checks and times, "
+                        "logged) and print no result; to time two trees of the kernels' "
+                        "sources against each other, one process a tree")
     only = [name for name in parser.parse_args().only.split(",") if name]
-    if any(name not in KERNEL_PHASES for name in only):
-        parser.error(f"--only takes {sorted(KERNEL_PHASES)}, got {only}")
+    if any(name not in KERNEL_PHASES and name not in PATH_PHASES for name in only):
+        parser.error(f"--only takes {sorted(KERNEL_PHASES) + sorted(PATH_PHASES)}, got {only}")
     meta_cores = split_cores()
 
     import torch
@@ -2469,7 +2600,10 @@ def main() -> int:
     rec = {name: {"err": 0.0} for name in KERNELS}
     if only:
         for name in only:
-            KERNEL_PHASES[name](torch, lk if name == "kernels_lowrank" else q, ref, rec)
+            if name in PATH_PHASES:
+                PATH_PHASES[name](torch, q)
+            else:
+                KERNEL_PHASES[name](torch, lk if name == "kernels_lowrank" else q, ref, rec)
         log(f"{','.join(only)}: {time.perf_counter() - t0:.1f} s; {gpu_name_and_power()}")
         return 0
     meta_proc = start_meta_records(meta_cores)
@@ -2489,6 +2623,7 @@ def main() -> int:
     runs += [phase_stacked(torch, q, algo, comp, per_step)
              for algo, comp, per_step in stacked_runs()]
     runs.append(phase_quickstart(torch, q))
+    runs.append(phase_gossip_reference(torch, q))
     runs += [phase_plan_run(torch, q, label, fields, steps, launches)
              for label, fields, steps, launches in PLAN_RUNS]
     runs.append(phase_checkpoint(torch, q))

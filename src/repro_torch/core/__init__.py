@@ -15,6 +15,7 @@ from repro_torch.core.algorithms import (
     ALGORITHMS,
     Algorithm,
     AlgoState,
+    GossipReference,
     average_model,
     consensus_distance,
     make_algorithm,

@@ -126,6 +126,23 @@ class Compressor:
         return _rebuild(tree, [self.apply_leaf(key, leaf, li, path)
                                for li, (path, leaf) in enumerate(leaf_items(tree))])
 
+    def tree_compress(self, key: Key, tree: Any):
+        """``(paths, [payload per leaf])``, each leaf flattened as in
+        :meth:`compress`: with a generator an independent seed per leaf, with
+        an integer step ``leaf_seed(step, salt, leaf_index)``."""
+        items = leaf_items(tree)
+        return ([p for p, _ in items],
+                [self.wire.encode(leaf.reshape(-1), self._seed(key, li))
+                 for li, (_, leaf) in enumerate(items)])
+
+    def tree_decompress(self, paths, payloads, like_tree: Any) -> Any:
+        """Inverse of :meth:`tree_compress`, shaped and typed like ``like_tree``."""
+        items = leaf_items(like_tree)
+        if [p for p, _ in items] != list(paths):
+            raise ValueError("the payloads were compressed from another tree")
+        return _rebuild(like_tree, [self.decompress(pl, like)
+                                    for pl, (_, like) in zip(payloads, items)])
+
 
 @dataclasses.dataclass(frozen=True)
 class IdentityCompressor(Compressor):

@@ -1,3 +1,3 @@
-from repro_torch.data.pipeline import DataConfig, sample_batch, stacked_node_batches
+from repro_torch.data.pipeline import DataConfig, iterate, sample_batch, stacked_node_batches
 
-__all__ = ["DataConfig", "sample_batch", "stacked_node_batches"]
+__all__ = ["DataConfig", "iterate", "sample_batch", "stacked_node_batches"]

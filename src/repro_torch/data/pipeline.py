@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -132,6 +132,15 @@ def sample_batch(cfg: DataConfig, step: int, shard: int, arch: Optional[ArchConf
         raise ValueError(f"shard {shard} out of range for {cfg.n_shards} shards")
     per = cfg.global_batch // cfg.n_shards
     return _batch(cfg, _row_keys(cfg, step, [shard], device), arch, (per,))
+
+
+def iterate(cfg: DataConfig, shard: int, arch: Optional[ArchConfig] = None,
+            start_step: int = 0, *, device="cuda") -> Iterator[Dict[str, torch.Tensor]]:
+    """Shard ``shard``'s batches of steps ``start_step, start_step + 1, ...``."""
+    step = start_step
+    while True:
+        yield sample_batch(cfg, step, shard, arch, device=device)
+        step += 1
 
 
 def stacked_node_batches(cfg: DataConfig, step: int, arch: Optional[ArchConfig] = None, *,

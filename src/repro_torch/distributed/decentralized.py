@@ -79,6 +79,7 @@ wire=)``), advanced in place by ``wire.encode_leaf_stateful``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -95,6 +96,7 @@ from repro_torch.distributed.gossip import (
     GossipSchedule,
     as_schedule,
     gated_weights,
+    make_gossip_plan,
     mix_leaf,
     weight_for,
 )
@@ -580,3 +582,34 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         return state, {"loss": loss, "lr": lr, "consensus": consensus, **metrics}
 
     return step
+
+
+# ------------------------------------------------------- deprecated spellings
+
+def gossip_shifts(topology: str, n: int) -> Tuple[float, Dict[int, float]]:
+    """Deprecated: use :func:`repro_torch.distributed.gossip.make_gossip_plan`.
+    The old ``(self_weight, {shift: weight})`` view of the compiled plan
+    (uniform-weight topologies only)."""
+    warnings.warn("gossip_shifts is deprecated; use make_gossip_plan(topology, n)",
+                  DeprecationWarning, stacklevel=2)
+    plan = make_gossip_plan(topology, n)
+    if not plan.uniform:
+        raise ValueError(f"{topology!r} compiles to per-node weights; use the plan")
+    return plan.self_weight, dict(plan.shifts)
+
+
+_DEPRECATED = {
+    "WireCodec": "QuantWire",
+    "SparseWireCodec": "SparseWire",
+}
+
+
+def __getattr__(name: str):
+    if name in _DEPRECATED:
+        from repro_torch.distributed import wire as _wire
+
+        new = _DEPRECATED[name]
+        warnings.warn(f"repro_torch.distributed.decentralized.{name} is deprecated; use "
+                      f"repro_torch.distributed.wire.{new}", DeprecationWarning, stacklevel=2)
+        return getattr(_wire, new)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

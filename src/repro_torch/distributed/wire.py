@@ -918,15 +918,24 @@ def wire_spec(w: WireFormat) -> str:
 
 
 # name -> (constructor, positional spec-arg names in order)
-WIRE_FORMATS: Dict[str, Tuple[Callable[..., WireFormat], Tuple[str, ...]]] = {
-    "quant": (QuantWire, ("bits", "block")),
-    "sparse": (SparseWire, ("p", "mode", "block")),
-    "sign": (SignWire, ("scale", "block")),
-    "fp16": (Fp16Wire, ()),
-    "identity": (IdentityWire, ()),
-    "lowrank": (LowRankWire, ("rank",)),
-    "adaptive": (AdaptiveWire, ("threshold",)),
-}
+WIRE_FORMATS: Dict[str, Tuple[Callable[..., WireFormat], Tuple[str, ...]]] = {}
+
+
+def register_wire_format(name: str, ctor: Callable[..., WireFormat],
+                         positional: Tuple[str, ...] = ()) -> None:
+    """Register a wire format under ``name`` for :func:`make_wire_format`;
+    ``positional`` names the constructor kwargs that bare spec args map to,
+    in order (``("bits", "block")`` makes ``"quant:4:128"`` work)."""
+    WIRE_FORMATS[name] = (ctor, positional)
+
+
+register_wire_format("quant", QuantWire, positional=("bits", "block"))
+register_wire_format("sparse", SparseWire, positional=("p", "mode", "block"))
+register_wire_format("sign", SignWire, positional=("scale", "block"))
+register_wire_format("fp16", Fp16Wire)
+register_wire_format("identity", IdentityWire)
+register_wire_format("lowrank", LowRankWire, positional=("rank",))
+register_wire_format("adaptive", AdaptiveWire, positional=("threshold",))
 
 
 def _coerce(text: str):

@@ -817,3 +817,36 @@ def test_dryrun_smoke_on_card(cuda, capsys):
     out = capsys.readouterr().out
     assert "[SMOKE OK] " in out and rec["n_devices"] == 1 and rec["steps"] == 2
     assert torch.isfinite(torch.tensor(rec["loss"]))
+
+
+def test_gossip_reference_on_card_matches_cpu(cuda):
+    """``GossipReference`` DCD ``quant:4`` on a ring of 8 at drop 0.2, three
+    steps on the card (K1 sends, K4b dense decodes) and on the CPU (their
+    plain versions) from the same params and gradients: params, replicas
+    and freshness within 1e-5, with one K1 and one K4b a leaf and step."""
+    from repro_torch.core import GossipReference
+    from repro_torch.distributed.gossip import make_gossip_plan
+
+    n, shapes = 8, {"b": (1024,), "w": (4, 2048)}
+    gen = torch.Generator().manual_seed(0)
+    p0 = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    c = {k: torch.randn((n,) + s, generator=gen) for k, s in shapes.items()}
+    ref = GossipReference(name="dcd", plan=make_gossip_plan("ring", n), wire="quant:4",
+                          drop="0.2:4")
+    states = {dev: ref.init({k: v.to(dev) for k, v in p0.items()}) for dev in ("cpu", cuda)}
+    step = ref.step_fn()
+    q.reset_launch_counts()
+    for t in range(3):
+        e = {k: 0.1 * torch.randn((n,) + s, generator=gen) for k, s in shapes.items()}
+        for dev, st in states.items():
+            g = {k: st.params[k] - c[k].to(dev) + e[k].to(dev) for k in shapes}
+            step(st, g, None, 0.05)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in q.launch_counts().items() if v}
+    assert counts == {"quantize_pack_2d": 6, "unpack_dequant_2d": 6}, counts
+    cpu, card = states["cpu"], states[cuda]
+    for a in ("params", *sorted(cpu.aux)):
+        x, y = (cpu.params, card.params) if a == "params" else (cpu.aux[a], card.aux[a])
+        for k in (shapes if isinstance(x, dict) else [None]):
+            xa, ya = (x, y) if k is None else (x[k], y[k])
+            torch.testing.assert_close(ya.cpu(), xa, rtol=0, atol=1e-5, msg=f"{a} {k}")

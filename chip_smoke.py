@@ -96,6 +96,17 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    ``--pareto``, ``--lowrank``, ``--drop-rate 0.2`` and ``--error-feedback
    --algo choco --wire sign`` (``--quick``), whose gates fail the run.
    ``--only gossip_reference`` runs just this phase and prints no result.
+   analysis — the port's ``repro_torch.analysis`` on the card: the lint of
+   the port's files (0 findings); one step of each of the 19 cases of the
+   JAX package's representative grid on its toy testbed
+   (``step_checks.run_sweep``): every case ``ok``, each wrapper's launches
+   equal to its calls, the receive launches equal to ``decode sites x
+   kernels per site`` (> 0 for every wire case), no float64 and no host
+   read of a card tensor inside the step, only wire containers handed to
+   the transport; then one step each of DCD ``quant:8`` and DCD ``quant:4``
+   at drop 0.2 at the train phase's width and ``TrainConfig`` defaults,
+   with the same checks and the dtypes each handed its transport.  ``--only
+   analysis`` runs just this phase and prints no result.
 6. plans — the rest of the runtime at the train phase's width (``PLAN_RUNS``):
    R1 naive ``quant:4`` on a chain with drops at 0.1 (K1 sends, K4b decodes
    every neighbour densely), R2 DCD ``quant:8`` on ``full_logn`` (three
@@ -1503,6 +1514,85 @@ def phase_gossip_reference(torch, q) -> dict:
     return totals
 
 
+# the analyzer's steps at the train phase's width: (algo, wire, drop)
+ANALYSIS_FULL_WIDTH = (("dcd", "quant:8", 0.0), ("dcd", "quant:4", 0.2))
+
+
+def phase_analysis(torch, q) -> dict:
+    """The port's analysis (``repro_torch.analysis``) on the card.  (a) The
+    lint of the port's files: 0 findings.  (b) ``run_sweep`` on the card,
+    one step of each case of the JAX package's representative grid on its
+    toy testbed: every report ``ok`` (no wrapper took its plain version, no
+    float64, no host read of a card tensor, only wire containers handed to
+    the transport), and the receive launches equal to the calls and to
+    ``decode sites x kernels per site``, > 0 for every wire case.  (c) One
+    step each of ``ANALYSIS_FULL_WIDTH`` at the train phase's width
+    (granite-3-2b, 1 layer, ring of 8, the ``TrainConfig`` defaults: AdamW,
+    warmup-cosine lr, seq 256, batch 32) with the same checks, the dtypes
+    each step handed its transport and its launches logged.  Returns the
+    launches of (b) and (c), ``kernels_per_site``'s one encode and receive a
+    leaf included."""
+    from repro_torch.analysis import step_checks
+    from repro_torch.analysis.staticcheck import iter_py_files, lint_tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, stacked_node_batches
+    from repro_torch.launch.train import TrainConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import linear_warmup_cosine
+
+    t_phase = time.perf_counter()
+    findings = lint_tree(ROOT)
+    log(f"analysis lint: {len(findings)} finding(s) over "
+        f"{sum(1 for _ in iter_py_files(ROOT))} files")
+    assert not findings, [str(f) for f in findings]
+    launches0 = q.launch_counts()
+
+    def check(rep) -> None:
+        assert rep.ok, (rep.describe(), rep.violations)
+        assert rep.host_reads == 0, rep.describe()
+        assert rep.launches == rep.kernel_calls == rep.expected_kernels, rep.describe()
+        assert (rep.expected_kernels > 0) == (rep.wire is not None), rep.describe()
+
+    t0 = time.perf_counter()
+    reports = step_checks.run_sweep(device="cuda")
+    for rep in reports:
+        log(f"analysis[{'ok' if rep.ok else 'FAIL'}] {rep.describe()} "
+            f"launches={rep.launches} host_reads={rep.host_reads}")
+    log(f"analysis sweep: {len(reports)} cases on the card, "
+        f"{time.perf_counter() - t0:.1f} s")
+    for rep in reports:
+        check(rep)
+    assert len(reports) == 19, len(reports)
+
+    cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
+    tc = TrainConfig(arch="granite-3-2b", reduced=False)
+    model = build_model(cfg)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=tc.seq_len, global_batch=tc.global_batch,
+                    n_shards=tc.n_nodes, seed=tc.seed)
+    for algo, wire, drop in ANALYSIS_FULL_WIDTH:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        before = q.launch_counts()
+        testbed = (model.loss, model.init(tc.seed, device="cuda"),
+                   stacked_node_batches(dc, 0, cfg, device="cuda"))
+        rep = step_checks.analyze_case(
+            algo, tc.topology, wire, drop, n=tc.n_nodes, device="cuda", testbed=testbed,
+            opt=make_optimizer(tc.optimizer, weight_decay=0.01),
+            lr_schedule=linear_warmup_cosine(tc.lr, tc.warmup, tc.steps))
+        del testbed
+        counts = {k: v - before[k] for k, v in q.launch_counts().items() if v != before[k]}
+        log(f"analysis[{'ok' if rep.ok else 'FAIL'}] granite-3-2b 1 layer {rep.describe()} "
+            f"launches={rep.launches} host_reads={rep.host_reads}; wire dtypes handed "
+            f"{list(rep.permute_dtypes)}; launches with kernels_per_site's {counts}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(rep)
+    torch.cuda.empty_cache()
+    totals = {k: v - launches0[k] for k, v in q.launch_counts().items()}
+    log(f"analysis: {time.perf_counter() - t_phase:.1f} s; {gpu_name_and_power()}")
+    return totals
+
+
 def phase_quickstart(torch, q) -> dict:
     """The paper's Fig. 1 on the card, held to the JAX package's thresholds
     (tests/test_algorithms.py): dpsgd and 8-bit DCD within 1.2x the optimal
@@ -2567,7 +2657,7 @@ KERNEL_PHASES = {"kernels": phase_kernels, "kernels_sign": phase_kernels_sign,
                  "kernels_sparse_decode": phase_kernels_sparse_decode,
                  "kernels_lowrank": phase_kernels_lowrank}
 # the path phases ``--only`` runs; each takes (torch, the wrappers' module)
-PATH_PHASES = {"gossip_reference": phase_gossip_reference}
+PATH_PHASES = {"gossip_reference": phase_gossip_reference, "analysis": phase_analysis}
 
 
 def main() -> int:
@@ -2624,6 +2714,7 @@ def main() -> int:
              for algo, comp, per_step in stacked_runs()]
     runs.append(phase_quickstart(torch, q))
     runs.append(phase_gossip_reference(torch, q))
+    runs.append(phase_analysis(torch, q))
     runs += [phase_plan_run(torch, q, label, fields, steps, launches)
              for label, fields, steps, launches in PLAN_RUNS]
     runs.append(phase_checkpoint(torch, q))

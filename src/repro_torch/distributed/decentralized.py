@@ -233,9 +233,11 @@ def _moment_leaves(opt: OptState, n_leaves: int):
 def _on_device(w, device):
     """A plan weight for the device: a scalar stays a float, an (n,) numpy
     vector becomes a float32 tensor there, once a round rather than once a
-    leaf (a copy from host memory waits for the device's queue)."""
+    leaf (a copy from host memory waits for the device's queue).  The
+    vector is rounded to float32 in numpy, so no float64 tensor enters the
+    step (the same rounding as torch's)."""
     if isinstance(w, np.ndarray):
-        return torch.as_tensor(w, dtype=torch.float32, device=device)
+        return torch.from_numpy(w.astype(np.float32)).to(device)
     return w
 
 
@@ -305,7 +307,9 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
     injects the deterministic edge drops described in the module
     docstring.  ``group`` (a :class:`~repro_torch.launch.mesh.NodeGroup` of
     the plan's ``n`` ranks) runs this rank's node only, its state from
-    ``init_dist_state(..., group=)``."""
+    ``init_dist_state(..., group=)``.  ``step.transport`` is the step's
+    transport, whose ``stats`` record what each exchange was handed, by
+    label (:class:`~repro_torch.distributed.transport.TransportStats`)."""
     _check_algo(algo)
     if not 0.0 < gamma <= 1.0:
         raise ValueError(f"CHOCO consensus stepsize gamma={gamma} must lie in (0, 1]")
@@ -581,6 +585,7 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
         state.step += 1
         return state, {"loss": loss, "lr": lr, "consensus": consensus, **metrics}
 
+    step.transport = tp     # what the step hands its transport: ``tp.stats``
     return step
 
 

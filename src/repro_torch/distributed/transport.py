@@ -61,24 +61,31 @@ class Lazy(dict):
 
 @dataclasses.dataclass
 class TransportStats:
-    """What one rank sent, by label: bytes, the dtypes of the tensors, and
-    the host seconds of the label's exchanges and collectives."""
+    """What a transport was handed, by label: bytes, the dtypes and the
+    ``(dtype, shape)`` of the tensors, and the host seconds of the label's
+    exchanges and collectives.  A rank counts what it sends; the stacked
+    transport what each exchange was handed, once whatever its shifts."""
     sent: Dict[str, int] = dataclasses.field(default_factory=dict)
-    dtypes: Dict[str, set] = dataclasses.field(default_factory=dict)
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    shapes: Dict[str, set] = dataclasses.field(default_factory=dict)
+
+    @property
+    def dtypes(self) -> Dict[str, set]:
+        """The dtype names handed, by label."""
+        return {label: {d for d, _ in pairs} for label, pairs in self.shapes.items()}
 
     def add(self, label: str, tensors: Iterable[torch.Tensor], seconds: float = 0.0) -> None:
         tensors = list(tensors)
         self.sent[label] = self.sent.get(label, 0) + sum(t.numel() * t.element_size()
                                                          for t in tensors)
-        self.dtypes.setdefault(label, set()).update(str(t.dtype).removeprefix("torch.")
-                                                    for t in tensors)
+        self.shapes.setdefault(label, set()).update(
+            (str(t.dtype).removeprefix("torch."), tuple(t.shape)) for t in tensors)
         self.seconds[label] = self.seconds.get(label, 0.0) + seconds
 
     def reset(self) -> None:
         self.sent.clear()
-        self.dtypes.clear()
         self.seconds.clear()
+        self.shapes.clear()
 
 
 def wire_refused_shapes(leaves: Sequence[torch.Tensor], wires: Sequence) -> FrozenSet[tuple]:
@@ -104,12 +111,14 @@ def _check_whitelist(payload: Payload, label: str, refuse: FrozenSet[tuple]) -> 
 
 
 class StackedTransport:
-    """All ``n`` nodes stacked on one device."""
+    """All ``n`` nodes stacked on one device; ``stats`` records what each
+    exchange is handed (it refuses nothing: the whitelist guards a rank)."""
 
     def __init__(self, n: int):
         self.n = n
         self.rank: Optional[int] = None
         self.nodes = n          # nodes this process holds
+        self.stats = TransportStats()
 
     def local(self, w):
         """A per-node weight or mask as this process holds it: all of it."""
@@ -121,6 +130,7 @@ class StackedTransport:
         """``{s: roll(payload, s)}`` for each shift, rolled on access.  Drops
         are the caller's (it restores the dropped rows)."""
         _check_whitelist(payload, label, refuse)
+        self.stats.add(label, payload.values())
         return Lazy(lambda s: {k: torch.roll(v, s, dims=0) for k, v in payload.items()})
 
     def shift_tree(self, leaves: List[torch.Tensor], s: int) -> List[torch.Tensor]:
@@ -159,6 +169,7 @@ class RankTransport(StackedTransport):
 
         self.dist = dist
         self.group = group
+        self.stats = group.stats
         self.rank = group.rank
         self.nodes = 1
         self.device = group.device
@@ -227,7 +238,7 @@ class RankTransport(StackedTransport):
         got = {s: None if p is None else {k: self._back(v) for k, v in p.items()}
                for s, p in recv.items()}
         self._sync()
-        self.group.stats.add(label, sent, time.perf_counter() - t0)
+        self.stats.add(label, sent, time.perf_counter() - t0)
         return got
 
     def shift_tree(self, leaves: List[torch.Tensor], s: int) -> List[torch.Tensor]:
@@ -242,7 +253,7 @@ class RankTransport(StackedTransport):
         run(buf)
         res = self._back(buf)
         self._sync()
-        self.group.stats.add(label, [buf], time.perf_counter() - t0)
+        self.stats.add(label, [buf], time.perf_counter() - t0)
         return res
 
     def node_mean(self, t: torch.Tensor) -> torch.Tensor:
@@ -257,7 +268,7 @@ class RankTransport(StackedTransport):
         buf = buf.cpu() if self.stage else buf
         parts = [torch.empty_like(buf) for _ in range(self.n)]
         self.dist.all_gather(parts, buf)
-        self.group.stats.add("metric", [buf], time.perf_counter() - t0)
+        self.stats.add("metric", [buf], time.perf_counter() - t0)
         return torch.cat(parts).to(t.device)
 
     def gather_to_root(self, t: torch.Tensor) -> Optional[torch.Tensor]:
@@ -268,7 +279,7 @@ class RankTransport(StackedTransport):
         buf = buf.cpu() if self.stage else buf
         parts = [torch.empty_like(buf) for _ in range(self.n)] if self.rank == 0 else None
         self.dist.gather(buf, parts, dst=0)
-        self.group.stats.add("checkpoint", [buf], time.perf_counter() - t0)
+        self.stats.add("checkpoint", [buf], time.perf_counter() - t0)
         return torch.cat(parts).cpu() if parts is not None else None
 
     def consensus(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:

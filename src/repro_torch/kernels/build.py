@@ -126,13 +126,24 @@ def load(name: str) -> ctypes.CDLL:
 
 
 class LaunchCount:
-    """The launch count of a kernel variant that shares its wrapper with the
-    kernel (the bf16-accumulator receives): ``launches`` under ``__name__``,
-    read and reset with the wrappers' own counts."""
+    """The launch and call counts of a kernel variant that shares its wrapper
+    with the kernel (the bf16-accumulator receives): ``launches`` and
+    ``calls`` under ``__name__``, read and reset with the wrappers' own
+    counts."""
 
     def __init__(self, name: str):
         self.__name__ = name
         self.launches = 0
+        self.calls = 0
+
+
+def count_call(counter, launched: bool = False) -> None:
+    """One call of ``counter``'s kernel (a wrapper or a :class:`LaunchCount`)
+    that ran on real tensors: ``calls`` counts it, ``launches`` too when it
+    ``launched`` on the card rather than through the plain version."""
+    counter.calls += 1
+    if launched:
+        counter.launches += 1
 
 
 def kernel_attrs(name: str) -> list:

@@ -15,7 +15,9 @@ for CPU tensors, returns an empty result of the right shape for ``meta``
 tensors (wire accounting) and for CUDA tensors launches its kernel on the
 current stream or raises; there is no fallback.  Ranks 1..128 (the JAX
 wire's range); K7b needs ``n % 128 == 0``, the wire's gate.  Each counts its
-launches in ``launches``; plain and shapes-only runs do not count.
+launches in ``launches``; plain and shapes-only runs do not count.  Each
+counts in ``calls`` every run on real tensors, the plain version's too
+(meta, shapes only, is no call).
 """
 from __future__ import annotations
 
@@ -99,6 +101,7 @@ def lowrank_project_2d(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if dev.type == "meta":
         out = torch.empty((batch, rows, r), dtype=torch.float32, device=dev)
     elif dev.type == "cpu":
+        build.count_call(lowrank_project_2d)
         out = lowrank_project_2d_ref(mb, vb)
     else:
         _check_cuda("lowrank_project_2d", dev, batch, r)
@@ -109,7 +112,7 @@ def lowrank_project_2d(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                                             batch, rows, n, r, v_bstride,
                                             torch.cuda.current_stream(dev).cuda_stream)
         build.check_launch("lowrank_project_2d", err)
-        lowrank_project_2d.launches += 1
+        build.count_call(lowrank_project_2d, launched=True)
     return out[0] if two_d else out
 
 
@@ -140,6 +143,8 @@ def lowrank_axpy_2d(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *, weig
     if dev.type == "meta":
         return torch.empty_like(acc) if out is None else out
     if dev.type == "cpu":
+        build.count_call(LOWRANK_AXPY_2D_BF16 if acc.dtype == torch.bfloat16
+                         else lowrank_axpy_2d)
         res = lowrank_axpy_2d_ref(pb, vb, ab, weight=weight, acc_weight=acc_weight)
         res = res[0] if two_d else res
         return res if out is None else out.copy_(res)
@@ -157,9 +162,9 @@ def lowrank_axpy_2d(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *, weig
                  r, v_bstride, f32_scalar(acc_weight), f32_scalar(weight),
                  torch.cuda.current_stream(dev).cuda_stream)
     build.check_launch("lowrank_axpy_2d", err)
-    (LOWRANK_AXPY_2D_BF16 if bf16 else lowrank_axpy_2d).launches += 1
+    build.count_call(LOWRANK_AXPY_2D_BF16 if bf16 else lowrank_axpy_2d, launched=True)
     return out
 
 
-lowrank_project_2d.launches = 0
-lowrank_axpy_2d.launches = 0
+lowrank_project_2d.launches = lowrank_project_2d.calls = 0
+lowrank_axpy_2d.launches = lowrank_axpy_2d.calls = 0

@@ -16,7 +16,10 @@ kernel on the current stream or raises (a row wider than ``MAX_COLS``
 included, for the kernels that stage a row); there is no fallback.  Each keeps a
 plain integer count of its kernel launches (``launches``), which
 ``chip_smoke.py`` reads to show the training path went through the kernels;
-runs of the plain version do not count.
+runs of the plain version do not count.  Beside it ``calls`` counts every
+call that ran, on the card or through the plain version (what
+``repro_torch.analysis.step_checks`` holds to the decode-site formula on the
+CPU).
 
 Words are ``int32`` tensors holding the uint32 bit patterns of the JAX
 package's words (see ``kernels/ref.py``).
@@ -115,6 +118,12 @@ def _check_acc(acc: torch.Tensor, out: Optional[torch.Tensor], shape: tuple,
         _check_tensor("out", out, acc.dtype, shape, device)
 
 
+def _acc_counter(fn, variant: build.LaunchCount, acc: torch.Tensor):
+    """Where a receive counts: its bf16-accumulator ``variant`` for a
+    bfloat16 ``acc``, else the wrapper ``fn`` itself."""
+    return variant if acc.dtype == torch.bfloat16 else fn
+
+
 def _plain_into(res: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
     return res if out is None else out.copy_(res)
 
@@ -133,6 +142,7 @@ def quantize_pack_2d(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     _check_cols(cols, bits)
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
+        build.count_call(quantize_pack_2d)
         return quantize_pack_2d_ref(x, seed, bits=bits, offset=offset)
     _check_device("quantize_pack_2d", x.device, cols)
     words = torch.empty((rows, cols * bits // 32), dtype=torch.int32, device=x.device)
@@ -142,7 +152,7 @@ def quantize_pack_2d(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
                                       rows, cols, bits, int(seed) & MASK32,
                                       int(offset) & MASK32, _stream(x.device))
     build.check_launch("quantize_pack_2d", err)
-    quantize_pack_2d.launches += 1
+    build.count_call(quantize_pack_2d, launched=True)
     return words, scale
 
 
@@ -171,6 +181,7 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
     _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
     _check_acc(acc, out, (rows, cols), dev)
     if dev.type == "cpu":
+        build.count_call(_acc_counter(unpack_dequant_axpy_2d, UNPACK_DEQUANT_AXPY_2D_BF16, acc))
         return _plain_into(unpack_dequant_axpy_2d_ref(packed, scale, acc, bits=bits,
                                                       weight=weight, acc_weight=acc_weight),
                            out)
@@ -185,7 +196,8 @@ def unpack_dequant_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch
     err = launch(packed.data_ptr(), scale.data_ptr(), acc.data_ptr(), out.data_ptr(), rows,
                  cols, bits, aw, wl, _stream(dev))
     build.check_launch("unpack_dequant_axpy_2d", err)
-    (UNPACK_DEQUANT_AXPY_2D_BF16 if bf16 else unpack_dequant_axpy_2d).launches += 1
+    build.count_call(_acc_counter(unpack_dequant_axpy_2d, UNPACK_DEQUANT_AXPY_2D_BF16, acc),
+                     launched=True)
     return out
 
 
@@ -201,6 +213,7 @@ def quantize_2d(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
     _check_block(cols)
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
+        build.count_call(quantize_2d)
         return quantize_2d_ref(x, seed, bits=bits, offset=offset)
     _check_device("quantize_2d", x.device, cols)
     codes = torch.empty((rows, cols), dtype=torch.int8, device=x.device)
@@ -210,7 +223,7 @@ def quantize_2d(x: torch.Tensor, seed: int, *, bits: int, offset: int = 0):
                                  levels_for(bits), int(seed) & MASK32, int(offset) & MASK32,
                                  _stream(x.device))
     build.check_launch("quantize_2d", err)
-    quantize_2d.launches += 1
+    build.count_call(quantize_2d, launched=True)
     return codes, scale
 
 
@@ -228,6 +241,7 @@ def dequantize_2d(codes: torch.Tensor, scale: torch.Tensor, *, bits: int) -> tor
     _check_tensor("codes", codes, torch.int8, (rows, cols), dev)
     _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
     if dev.type == "cpu":
+        build.count_call(dequantize_2d)
         return dequantize_2d_ref(codes, scale, bits=bits)
     _check_device("dequantize_2d", dev)
     out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
@@ -235,7 +249,7 @@ def dequantize_2d(codes: torch.Tensor, scale: torch.Tensor, *, bits: int) -> tor
     err = lib.dequantize_2d_launch(codes.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
                                    cols, inv_levels(bits), _stream(dev))
     build.check_launch("dequantize_2d", err)
-    dequantize_2d.launches += 1
+    build.count_call(dequantize_2d, launched=True)
     return out
 
 
@@ -253,6 +267,7 @@ def unpack_dequant_2d(packed: torch.Tensor, scale: torch.Tensor, *, bits: int) -
     _check_tensor("packed", packed, torch.int32, (rows, w), dev)
     _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
     if dev.type == "cpu":
+        build.count_call(unpack_dequant_2d)
         return unpack_dequant_2d_ref(packed, scale, bits=bits)
     _check_device("unpack_dequant_2d", dev)
     cols = w * 32 // bits
@@ -261,7 +276,7 @@ def unpack_dequant_2d(packed: torch.Tensor, scale: torch.Tensor, *, bits: int) -
     err = lib.unpack_dequant_2d_launch(packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
                                        rows, cols, bits, inv_levels(bits), _stream(dev))
     build.check_launch("unpack_dequant_2d", err)
-    unpack_dequant_2d.launches += 1
+    build.count_call(unpack_dequant_2d, launched=True)
     return out
 
 
@@ -278,6 +293,7 @@ def sign_pack_2d(x: torch.Tensor, *, scale_mode: str = "mean"):
         raise ValueError(f"sign scale modes are {SIGN_SCALE_MODES}, got {scale_mode!r}")
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
+        build.count_call(sign_pack_2d)
         return sign_pack_2d_ref(x, scale_mode=scale_mode)
     _check_device("sign_pack_2d", x.device, cols)
     words = torch.empty((rows, cols // 32), dtype=torch.int32, device=x.device)
@@ -286,7 +302,7 @@ def sign_pack_2d(x: torch.Tensor, *, scale_mode: str = "mean"):
     err = lib.sign_pack_2d_launch(x.data_ptr(), words.data_ptr(), scale.data_ptr(), rows,
                                   cols, int(scale_mode == "l2"), _stream(x.device))
     build.check_launch("sign_pack_2d", err)
-    sign_pack_2d.launches += 1
+    build.count_call(sign_pack_2d, launched=True)
     return words, scale
 
 
@@ -307,6 +323,7 @@ def unpack_sign_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Te
     _check_tensor("scale", scale, torch.float32, (rows, 1), dev)
     _check_acc(acc, out, (rows, cols), dev)
     if dev.type == "cpu":
+        build.count_call(_acc_counter(unpack_sign_axpy_2d, UNPACK_SIGN_AXPY_2D_BF16, acc))
         return _plain_into(unpack_sign_axpy_2d_ref(packed, scale, acc, weight=weight,
                                                    acc_weight=acc_weight), out)
     _check_device("unpack_sign_axpy_2d", dev, cols)
@@ -318,7 +335,8 @@ def unpack_sign_axpy_2d(packed: torch.Tensor, scale: torch.Tensor, acc: torch.Te
     err = launch(packed.data_ptr(), scale.data_ptr(), acc.data_ptr(), out.data_ptr(), rows,
                  cols, f32_scalar(acc_weight), f32_scalar(weight), _stream(dev))
     build.check_launch("unpack_sign_axpy_2d", err)
-    (UNPACK_SIGN_AXPY_2D_BF16 if bf16 else unpack_sign_axpy_2d).launches += 1
+    build.count_call(_acc_counter(unpack_sign_axpy_2d, UNPACK_SIGN_AXPY_2D_BF16, acc),
+                     launched=True)
     return out
 
 
@@ -343,6 +361,7 @@ def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
         raise TypeError(f"sparse values are {SPARSE_VALUE_DTYPES}, got {value_dtype}")
     _check_tensor("x", x, torch.float32, (rows, cols), x.device)
     if x.device.type == "cpu":
+        build.count_call(sparse_select_pack_2d)
         return sparse_select_pack_2d_ref(x, seed, p=p, mode=mode, value_dtype=value_dtype,
                                          offset=offset)
     _check_device("sparse_select_pack_2d", x.device, cols)
@@ -355,7 +374,7 @@ def sparse_select_pack_2d(x: torch.Tensor, seed: int, *, p: float, mode: str,
         int(mode == "topk"), int(value_dtype == torch.float16), int(seed) & MASK32,
         int(offset) & MASK32, f32_scalar(cols / k), _stream(x.device))
     build.check_launch("sparse_select_pack_2d", err)
-    sparse_select_pack_2d.launches += 1
+    build.count_call(sparse_select_pack_2d, launched=True)
     return values, words
 
 
@@ -391,6 +410,7 @@ def sparse_unpack_scatter_2d(values: torch.Tensor, packed: torch.Tensor, *,
     _check_tensor("values", values, values.dtype, (rows, k), dev)
     _check_tensor("packed", packed, torch.int32, (rows, kpad * idx_bits // 32), dev)
     if dev.type == "cpu":
+        build.count_call(sparse_unpack_scatter_2d)
         return sparse_unpack_scatter_2d_ref(values, packed, cols=cols)
     _check_device("sparse_unpack_scatter_2d", dev, cols)
     out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
@@ -399,7 +419,7 @@ def sparse_unpack_scatter_2d(values: torch.Tensor, packed: torch.Tensor, *,
         values.data_ptr(), packed.data_ptr(), out.data_ptr(), rows, cols, k, kpad,
         int(values.dtype == torch.float16), _stream(dev))
     build.check_launch("sparse_unpack_scatter_2d", err)
-    sparse_unpack_scatter_2d.launches += 1
+    build.count_call(sparse_unpack_scatter_2d, launched=True)
     return out
 
 
@@ -428,6 +448,7 @@ def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torc
     _check_tensor("packed", packed, torch.int32, (rows, kpad * idx_bits // 32), dev)
     _check_acc(acc, out, (rows, cols), dev)
     if dev.type == "cpu":
+        build.count_call(_acc_counter(sparse_scatter_axpy_2d, SPARSE_SCATTER_AXPY_2D_BF16, acc))
         return _plain_into(sparse_scatter_axpy_2d_ref(values, packed, acc, weight=weight,
                                                       acc_weight=acc_weight), out)
     _check_device("sparse_scatter_axpy_2d", dev, cols)
@@ -441,7 +462,8 @@ def sparse_scatter_axpy_2d(values: torch.Tensor, packed: torch.Tensor, acc: torc
                  cols, k, kpad, int(values.dtype == torch.float16), f32_scalar(acc_weight),
                  f32_scalar(weight), _stream(dev))
     build.check_launch("sparse_scatter_axpy_2d", err)
-    (SPARSE_SCATTER_AXPY_2D_BF16 if bf16 else sparse_scatter_axpy_2d).launches += 1
+    build.count_call(_acc_counter(sparse_scatter_axpy_2d, SPARSE_SCATTER_AXPY_2D_BF16, acc),
+                     launched=True)
     return out
 
 
@@ -462,4 +484,18 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
 
 
+def reset_call_counts() -> None:
+    """Set every kernel's call count to 0."""
+    for fn in KERNEL_WRAPPERS:
+        fn.calls = 0
+
+
+def call_counts() -> dict:
+    """Every wrapper's calls on real tensors, its plain version's included:
+    on the card ``call_counts() == launch_counts()`` shows that no wrapper
+    ran its plain version."""
+    return {fn.__name__: fn.calls for fn in KERNEL_WRAPPERS}
+
+
 reset_launch_counts()
+reset_call_counts()

@@ -25,7 +25,7 @@ meta build's wall seconds stand under ``build_s`` (JAX: ``lower_s`` and
 ``scan_factor`` are XLA's and ``None``.  ``analysis`` summarises the
 containers one gossip round hands to the transport: their dtypes, and the
 payloads the rank exchange's whitelist would refuse
-(:func:`~repro_torch.distributed.transport.wire_refused_shapes`).
+(:func:`~repro_torch.analysis.step_checks.analysis_record`).
 
 ``--smoke`` builds the reduced config the same way and then executes 2
 steps (``remat=True``, 2 nodes stacked on one device, the card unless
@@ -62,7 +62,7 @@ from repro_torch.distributed.sharding import (
     per_device_bytes,
     stack_depth,
 )
-from repro_torch.distributed.transport import wire_refused_shapes
+from repro_torch.analysis.step_checks import analysis_record
 from repro_torch.distributed.wire import (
     AdaptiveWire,
     leaf_path_str,
@@ -169,27 +169,6 @@ def _wire_record(codec, params) -> Dict[str, Any]:
             "wire_bits_per_element": round(8.0 * payload_bytes / _tree_size(params), 4),
             "wire_format": codec.wire_format,
             "wire_spec_per_leaf": _wire_spec_per_leaf(codec, params)}
-
-
-def _analysis_record(codec, params, payloads: int) -> Dict[str, Any]:
-    """The containers one round hands to the transport for ``params``
-    (encoded on meta): their dtypes, one permute a leaf and payload, and how
-    many the rank exchange's whitelist would refuse (a dense param-shaped
-    float tensor)."""
-    if codec is None:
-        return {"collective_permutes": 0, "permute_dtypes": [], "f64_free": True}
-    items = leaf_items(params)
-    wires = [codec.route(p, l.shape) for p, l in items]
-    leaves = [l for _, l in items]
-    refused = wire_refused_shapes(leaves, wires)
-    dtypes, bad = set(), 0
-    for leaf, w in zip(leaves, wires):
-        payload = w.encode(torch.empty(leaf.shape, dtype=torch.float32, device="meta"), 0)
-        for t in payload.values():
-            dtypes.add(str(t.dtype).removeprefix("torch."))
-            bad += int(t.dtype.is_floating_point and tuple(t.shape) in refused)
-    return {"collective_permutes": payloads * len(items), "permute_dtypes": sorted(dtypes),
-            "f64_free": "float64" not in dtypes, "permute_whitelist_violations": bad}
 
 
 def _wire_kernel_bytes(codec, algo: str, params, aux_bytes: int, gossip) -> float:
@@ -350,7 +329,7 @@ def dryrun_train(arch: str, shape_name: str, *, multi_pod: bool, algo: str = "dc
         "arch": arch, "shape": shape_name, "kind": "train", "algo": algo, "wire": wire,
         "multi_pod": multi_pod, "n_nodes": n, "n_chips": n_chips,
         "aux_dtype": plan.aux_dtype, "remat": plan.remat, **fields,
-        "analysis": _analysis_record(codec, state.params, payloads),
+        "analysis": analysis_record(codec, state.params, payloads),
         "build_s": round(build_s, 3),
         "memory": {"argument_bytes": arg_bytes, "output_bytes": state_dev,
                    "temp_bytes": None, "alias_bytes": None},
@@ -470,7 +449,7 @@ def dryrun_smoke(arch: str = "granite-3-2b", *, algo: str = "dcd", wire: str = "
         "arch": arch, "kind": "smoke", "algo": algo, "wire": wire, **gossip_rec,
         "n_devices": 1, "compile_s": round(t1 - t0, 3), "steps": steps,
         "loss": float(metrics["loss"]),
-        "analysis": _analysis_record(codec, state_sds.params, gossip_rec["gossip_payloads"]),
+        "analysis": analysis_record(codec, state_sds.params, gossip_rec["gossip_payloads"]),
     }
     rec.update(_failure_record(codec, gossip, algo, p_sds, drop, straggler))
     rec.update(_controller_record(codec, gossip, algo, p_sds, drop, straggler))

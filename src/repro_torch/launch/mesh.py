@@ -55,6 +55,12 @@ class NodeGroup:
 
         dist.barrier()
 
+    def close(self) -> None:
+        """Leave the process group."""
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
 
 @dataclasses.dataclass(frozen=True)
 class LogicalMesh:
@@ -157,14 +163,12 @@ def _rank_main(rank: int, n: int, backend: str, device, init_method: str,
                timeout_s: Optional[float], results, fn: Callable, args: tuple) -> None:
     """A spawned rank: join the group, run ``fn(group, *args)``, hand back
     its result."""
-    import torch.distributed as dist
-
     group = init_node_group(backend, rank=rank, n=n, init_method=init_method, device=device,
                             timeout_s=timeout_s)
     if group.device.type == "cpu":
         torch.set_num_threads(1)       # n ranks share the host's cores
     out = fn(group, *args)
-    dist.destroy_process_group()
+    group.close()
     results.put((rank, out))
 
 

@@ -256,7 +256,7 @@ def main():
     if torchrun:
         group = init_node_group(args.backend, device=args.device)
         hist = run_training(cfg, dataclasses.replace(tc, n_nodes=group.n), group=group)
-        torch.distributed.destroy_process_group()
+        group.close()
         if group.rank != 0:
             return
     elif args.ranks:

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K3,
 K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b, and the bf16-accumulator
 variants of K2, K5b, K6c and K7b, against their plain versions; the
-dryrun's executed smoke on the card.
+dryrun's executed smoke on the card; the step analyzer's grid on the card
+(``repro_torch.analysis.step_checks``).
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -20,6 +21,7 @@ import sys
 import pytest
 import torch
 
+from repro_torch.analysis import step_checks as sc
 from repro_torch.kernels import build
 from repro_torch.kernels import lowrank as lk
 from repro_torch.kernels import quant as q
@@ -850,3 +852,34 @@ def test_gossip_reference_on_card_matches_cpu(cuda):
         for k in (shapes if isinstance(x, dict) else [None]):
             xa, ya = (x, y) if k is None else (x[k], y[k])
             torch.testing.assert_close(ya.cpu(), xa, rtol=0, atol=1e-5, msg=f"{a} {k}")
+
+
+@pytest.mark.parametrize("case", sc.DEFAULT_GRID, ids=lambda c: "-".join(str(x) for x in c))
+def test_analysis_sweep_on_card(cuda, case):
+    """One step of each grid case on the card: ``ok`` (every wrapper's
+    launches equal its calls, no f64, no host read of a card tensor, the
+    whitelist), and the receive launches equal to the decode-site formula."""
+    rep = sc.analyze_case(*case, device="cuda")
+    assert rep.ok, rep.violations
+    assert rep.host_reads == 0
+    assert rep.launches == rep.kernel_calls == rep.expected_kernels
+    assert (rep.expected_kernels > 0) == (case[2] is not None)
+
+
+def test_no_wrapper_takes_its_plain_version_in_a_card_step(cuda):
+    """A DCD ``quant:4`` step of the toy testbed on the card: each wrapper's
+    calls equal its launches, K1 once a leaf, K2 on the two leaves on the
+    lane gate and K4b on the 32-wide one, 3 decode sites each."""
+    from repro_torch.distributed.decentralized import init_dist_state, make_dist_train_step
+    from repro_torch.optim import sgd
+    from repro_torch.optim.schedules import constant
+
+    step = make_dist_train_step(sc._toy_loss, "dcd", sgd(), "quant:4", 8, constant(0.05))
+    state = init_dist_state("dcd", sc._toy_params(cuda), 8, sgd())
+    calls, launches = q.call_counts(), q.launch_counts()
+    step(state, sc._toy_batch(8, device=cuda))
+    torch.cuda.synchronize()
+    dc = {k: v - calls[k] for k, v in q.call_counts().items() if v != calls[k]}
+    dl = {k: v - launches[k] for k, v in q.launch_counts().items() if v != launches[k]}
+    assert dc == dl == {"quantize_pack_2d": 2, "unpack_dequant_axpy_2d": 6,
+                        "unpack_dequant_2d": 3}, (dc, dl)

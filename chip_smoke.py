@@ -1870,6 +1870,7 @@ def _rank_worker(group, cfg, runs, ref_dir) -> list:
     hats), and the params against the stacked run's node slice."""
     import torch
 
+    from repro_torch import trace
     from repro_torch.distributed.transport import RankTransport
     from repro_torch.kernels import quant as q
     from repro_torch.launch.train import run_training
@@ -1884,9 +1885,11 @@ def _rank_worker(group, cfg, runs, ref_dir) -> list:
         on_card = group.device.type == "cuda"
         if on_card:
             torch.cuda.reset_peak_memory_stats(group.device)
+        trace.enable(True)
         hist = run_training(cfg, tc, group=group)
+        trace.enable(False)
         counts = q.launch_counts()
-        stats = {"sent": dict(group.stats.sent), "seconds": dict(group.stats.seconds)}
+        stats = {"sent": dict(group.stats.sent), "seconds": hist["transport"]["seconds"]}
         state = hist["state"]
         rec = {"algo": algo, "wire": wire, "losses": hist["losses"], "step_s": hist["step_s"],
                "consensus": hist["consensus"], "counts": counts, "stats": stats,

@@ -40,6 +40,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 
 from repro_torch.kernels.ref import MASK32, pcg_hash
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +132,8 @@ def sample_batch(cfg: DataConfig, step: int, shard: int, arch: Optional[ArchConf
     if not 0 <= shard < cfg.n_shards:
         raise ValueError(f"shard {shard} out of range for {cfg.n_shards} shards")
     per = cfg.global_batch // cfg.n_shards
-    return _batch(cfg, _row_keys(cfg, step, [shard], device), arch, (per,))
+    with span("data.batch", step):
+        return _batch(cfg, _row_keys(cfg, step, [shard], device), arch, (per,))
 
 
 def iterate(cfg: DataConfig, shard: int, arch: Optional[ArchConfig] = None,
@@ -147,5 +149,6 @@ def stacked_node_batches(cfg: DataConfig, step: int, arch: Optional[ArchConfig] 
                          device="cuda") -> Dict[str, torch.Tensor]:
     """All shards stacked on a leading node axis: (n_shards, per_shard, ...)."""
     per = cfg.global_batch // cfg.n_shards
-    return _batch(cfg, _row_keys(cfg, step, range(cfg.n_shards), device), arch,
-                  (cfg.n_shards, per))
+    with span("data.batch", step):
+        return _batch(cfg, _row_keys(cfg, step, range(cfg.n_shards), device), arch,
+                      (cfg.n_shards, per))

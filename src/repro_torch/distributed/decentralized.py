@@ -71,6 +71,16 @@ gigabytes; a leaf-at-a-time step holds a few leaf-sized ones.  The rounds of
 one leaf depend on that leaf only; what they share across leaves (masks,
 freshness, gated weights) is computed for every round before the leaf loop.
 
+Spans (:mod:`repro_torch.trace`, off by default): a step is the span
+``step``, its per-node loss loop ``model.forward``, the backward
+``model.backward``, and its metrics ``step.metrics``.  Every leaf operation
+of the algorithm bodies lies in one of ``optim.update`` (the optimizer),
+``gossip.mix`` (a mix, and the sum it is added to or copied into),
+``gossip.encode`` (the send kernel and the ops that build what it encodes,
+the optimizer's update added to ``X_half`` included), ``gossip.decode``
+(every receive, the dropped rows kept and put back, a dropped edge's
+zeros) or ``transport.<label>`` (each transport call).
+
 Each leaf is encoded and decoded through ``wire.route(path, shape)``, its
 sub-format under ``adaptive``.  A stateful wire (``lowrank:<r>:warm``) keeps
 its codec state in ``aux[wire.aux_name]`` (``init_dist_state(...,
@@ -103,6 +113,7 @@ from repro_torch.distributed.gossip import (
 from repro_torch.distributed.transport import Lazy, make_transport, wire_refused_shapes
 from repro_torch.distributed.wire import Payload, WireFormat, leaf_seed, make_wire_format
 from repro_torch.optim.optimizers import OptState, Optimizer
+from repro_torch.trace import span
 from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map
 
 ALGOS = ("cpsgd", "dpsgd", "naive", "dcd", "ecd", "choco", "deepsqueeze")
@@ -245,7 +256,8 @@ def _received(payload: Optional[Payload], like: torch.Tensor,
               read: Callable[[Payload], torch.Tensor]) -> torch.Tensor:
     """``read(payload)``, or zeros like ``like`` where a dropped edge
     brought no payload (its mixing weight is 0)."""
-    return torch.zeros_like(like) if payload is None else read(payload)
+    with span("gossip.decode"):
+        return torch.zeros_like(like) if payload is None else read(payload)
 
 
 def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
@@ -259,14 +271,16 @@ def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
         l.requires_grad_(True)
     try:
         with torch.enable_grad():
-            losses, metrics = [], []
-            for i in range(n):
-                loss_i, met_i = loss_fn(tree_map(lambda l: l[i], params),
-                                        {k: v[i] for k, v in batch.items()})
-                losses.append(loss_i)
-                metrics.append(met_i)
-            losses_t = torch.stack(losses)
-            losses_t.sum().backward()
+            with span("model.forward"):
+                losses, metrics = [], []
+                for i in range(n):
+                    loss_i, met_i = loss_fn(tree_map(lambda l: l[i], params),
+                                            {k: v[i] for k, v in batch.items()})
+                    losses.append(loss_i)
+                    metrics.append(met_i)
+                losses_t = torch.stack(losses)
+            with span("model.backward"):
+                losses_t.sum().backward()
         grads = [l.grad for l in leaves]
     finally:
         for l in leaves:
@@ -406,7 +420,8 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
             g, grads[li] = grads[li], None
             upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
             del g
-            x.add_(tp.node_mean(upd).expand_as(upd))
+            with span("gossip.mix"):
+                x.add_(tp.node_mean(upd).expand_as(upd))
 
     def _dpsgd(state, grads, lr, t, X, lws, m, v, rnds):
         for li, x in enumerate(X):
@@ -418,25 +433,32 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                     rnd.weights)
                 del got
             g, grads[li] = grads[li], None
-            cur.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
-            del g
-            x.copy_(cur)
+            upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+            with span("gossip.mix"):
+                cur.add_(upd)
+                del upd, g
+                x.copy_(cur)
 
     def _naive(state, grads, lr, t, X, lws, m, v, rnds):
         # compress the exchanged models directly — provably non-convergent
         for li, (x, lw) in enumerate(zip(X, lws)):
             cur = x
             for rnd in rnds:
-                payload = _encode(state, rnd.enc, li, lw, cur)
+                with span("gossip.encode"):
+                    payload = _encode(state, rnd.enc, li, lw, cur)
                 got = _send(rnd, payload, rnd.plan.shift_list)
                 dec = Lazy(lambda s, c=cur, got=got: _received(got[s], c,
                                                                lambda p: lw.decode(p, c)))
-                cur = mix_leaf(rnd.plan, lw.decode(payload, cur), dec, rnd.weights)
-                del payload, got, dec
+                with span("gossip.decode"):
+                    own = lw.decode(payload, cur)
+                cur = mix_leaf(rnd.plan, own, dec, rnd.weights)
+                del payload, got, dec, own
             g, grads[li] = grads[li], None
-            cur.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
-            del g
-            x.copy_(cur)
+            upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+            with span("gossip.mix"):
+                cur.add_(upd)
+                del upd, g
+                x.copy_(cur)
 
     def _dcd(state, grads, lr, t, X, lws, m, v, rnds):
         reps = {s: tree_leaves(state.aux[f"rep{s:+d}"]) for s in union}
@@ -446,17 +468,21 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 z = mix_leaf(rnd.plan, x, {s: reps[s][li] for s in rnd.plan.shift_list},
                              rnd.weights)
                 if r == 0:
-                    z.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
-                    del g
-                z.sub_(x)                                                # Z = X_half - X
-                payload = _encode(state, rnd.enc, li, lw, z)
-                del z
+                    upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+                with span("gossip.encode"):
+                    if r == 0:
+                        z.add_(upd)                                      # X_half
+                        del upd, g
+                    z.sub_(x)                                            # Z = X_half - X
+                    payload = _encode(state, rnd.enc, li, lw, z)
+                    del z
                 got = _send(rnd, payload, union)
                 # one fused receive kernel per tree; every replica advances
                 # with the rolled words, so rep{s} == roll(X, s)
-                lw.decode_axpy_(payload, x, 1.0)
-                for s in union:
-                    _advance(rnd, s, lw, got[s], reps[s][li], 1.0)
+                with span("gossip.decode"):
+                    lw.decode_axpy_(payload, x, 1.0)
+                    for s in union:
+                        _advance(rnd, s, lw, got[s], reps[s][li], 1.0)
                 del payload, got
 
     def _ecd(state, grads, lr, t, X, lws, m, v, rnds):
@@ -474,24 +500,29 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
                 x_next = mix_leaf(rnd.plan, tilde_self[li],
                                   {s: tildes[s][li] for s in rnd.plan.shift_list}, rnd.weights)
                 if r == 0:
-                    x_next.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))
-                    del g
-                # s_t is a float32 array in JAX: bf16 estimates and params
-                # promote to float32 here
-                z = za * x.to(torch.float32) + zb * x_next.to(torch.float32)
-                payload = _encode(state, rnd.enc, li, lw, z)
-                del z
+                    upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+                with span("gossip.encode"):
+                    if r == 0:
+                        x_next.add_(upd)
+                        del upd, g
+                    # s_t is a float32 array in JAX: bf16 estimates and params
+                    # promote to float32 here
+                    z = za * x.to(torch.float32) + zb * x_next.to(torch.float32)
+                    payload = _encode(state, rnd.enc, li, lw, z)
+                    del z
                 got = _send(rnd, payload, union)
                 # est_decay*tilde + blend*decode in one fused pass per tree
-                lw.decode_axpy_(payload, tilde_self[li], blend, est_decay)
-                for s in union:
-                    _advance(rnd, s, lw, got[s], tildes[s][li], blend, est_decay)
+                with span("gossip.decode"):
+                    lw.decode_axpy_(payload, tilde_self[li], blend, est_decay)
+                    for s in union:
+                        _advance(rnd, s, lw, got[s], tildes[s][li], blend, est_decay)
                 del payload, got
-                if x_next.dtype == x.dtype:
-                    x.copy_(x_next)
-                else:       # bf16 estimates mix to bf16 params, as JAX's X_next
-                    X[li] = x = x_next
-                del x_next
+                with span("gossip.mix"):
+                    if x_next.dtype == x.dtype:
+                        x.copy_(x_next)
+                    else:       # bf16 estimates mix to bf16 params, as JAX's X_next
+                        X[li] = x = x_next
+                    del x_next
 
     def _choco(state, grads, lr, t, X, lws, m, v, rnds):
         hat_self = tree_leaves(state.aux["hat_self"])
@@ -500,23 +531,28 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
             g, grads[li] = grads[li], None
             for r, rnd in enumerate(rnds):
                 if r == 0:
-                    x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
-                    del g
-                z = x - hat_self[li]                                     # Z = X_half - hat_self
-                payload = _encode(state, rnd.enc, li, lw, z)
-                del z
+                    upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+                with span("gossip.encode"):
+                    if r == 0:
+                        x.add_(upd)                                      # X_half
+                        del upd, g
+                    z = x - hat_self[li]                                 # Z = X_half - hat_self
+                    payload = _encode(state, rnd.enc, li, lw, z)
+                    del z
                 got = _send(rnd, payload, union)
                 # every node decodes the words it sent, so hat_self stays equal
                 # to each neighbour's hat{s} of it: hat{s} == roll(hat_self, s)
-                lw.decode_axpy_(payload, hat_self[li], 1.0)
-                for s in union:
-                    _advance(rnd, s, lw, got[s], hats[s][li], 1.0)
+                with span("gossip.decode"):
+                    lw.decode_axpy_(payload, hat_self[li], 1.0)
+                    for s in union:
+                        _advance(rnd, s, lw, got[s], hats[s][li], 1.0)
                 del payload, got
                 mixed = mix_leaf(rnd.plan, hat_self[li],
                                  {s: hats[s][li] for s in rnd.plan.shift_list}, rnd.weights)
-                mixed.sub_(hat_self[li])
-                x.add_(mixed.mul_(weight_for(gamma32, mixed)))           # X_half + gamma*(mix - hat)
-                del mixed
+                with span("gossip.mix"):
+                    mixed.sub_(hat_self[li])
+                    x.add_(mixed.mul_(weight_for(gamma32, mixed)))       # X_half + gamma*(mix - hat)
+                    del mixed
 
     def _deepsqueeze(state, grads, lr, t, X, lws, m, v, rnds):
         err_items = leaf_items(state.aux["err_self"])
@@ -525,44 +561,56 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
             g, grads[li] = grads[li], None
             for r, rnd in enumerate(rnds):
                 if r == 0:
-                    x.add_(opt.update_leaf(g, m[li], v[li], x, lr, t))   # X_half
-                    del g
-                if errs[li].dtype == x.dtype:
-                    err = errs[li].add_(x)                               # V = X_half + err
-                else:   # a bf16 residual: V is float32, and the residual after it (JAX)
-                    errs[li] = err = x + errs[li]
-                payload = _encode(state, rnd.enc, li, lw, err)
+                    upd = opt.update_leaf(g, m[li], v[li], x, lr, t)
+                with span("gossip.encode"):
+                    if r == 0:
+                        x.add_(upd)                                      # X_half
+                        del upd, g
+                    if errs[li].dtype == x.dtype:
+                        err = errs[li].add_(x)                           # V = X_half + err
+                    else:   # a bf16 residual: V is float32, and the residual after it (JAX)
+                        errs[li] = err = x + errs[li]
+                    payload = _encode(state, rnd.enc, li, lw, err)
                 got = _send(rnd, payload, rnd.plan.shift_list)
-                d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
-                if rnd.weights is None and rnd.plan.uniform:
-                    # scalar weights: each neighbour's payload is decoded
-                    # straight into the mix, acc + w*dec(roll(P, s)) — the JAX
-                    # plan_mix's ``out + w*nbr`` of a zero-based decode
-                    mixed = rnd.plan.self_weight * d_self
-                    for s, w in rnd.plan.shifts:
-                        lw.decode_axpy_(got[s], mixed, w)
-                else:
-                    # per-node or gated weights: the kernels take a scalar
-                    # weight, so decode each neighbour at 1.0 and mix
-                    self_w, ws = rnd.weights if rnd.weights is not None else (
-                        rnd.plan.self_weight, dict(rnd.plan.shifts))
-                    mixed = weight_for(self_w, x) * d_self
-                    for s in rnd.plan.shift_list:
-                        dec = _received(got[s], x,
-                                        lambda p: lw.decode_axpy_(p, torch.zeros_like(x), 1.0))
-                        mixed.add_(weight_for(ws[s], x) * dec)
-                        del dec
+                with span("gossip.decode"):
+                    d_self = lw.decode_axpy_(payload, torch.zeros_like(x), 1.0)
+                with span("gossip.mix"):
+                    if rnd.weights is None and rnd.plan.uniform:
+                        # scalar weights: each neighbour's payload is decoded
+                        # straight into the mix, acc + w*dec(roll(P, s)) — the
+                        # JAX plan_mix's ``out + w*nbr`` of a zero-based decode
+                        mixed = rnd.plan.self_weight * d_self
+                        for s, w in rnd.plan.shifts:
+                            with span("gossip.decode"):
+                                lw.decode_axpy_(got[s], mixed, w)
+                    else:
+                        # per-node or gated weights: the kernels take a scalar
+                        # weight, so decode each neighbour at 1.0 and mix
+                        self_w, ws = rnd.weights if rnd.weights is not None else (
+                            rnd.plan.self_weight, dict(rnd.plan.shifts))
+                        mixed = weight_for(self_w, x) * d_self
+                        for s in rnd.plan.shift_list:
+                            dec = _received(got[s], x, lambda p: lw.decode_axpy_(
+                                p, torch.zeros_like(x), 1.0))
+                            mixed.add_(weight_for(ws[s], x) * dec)
+                            del dec
                 # the residual last: an identity payload is the V buffer itself
-                lw.decode_axpy_(payload, err, -1.0)                      # err = V - dec(V)
+                with span("gossip.decode"):
+                    lw.decode_axpy_(payload, err, -1.0)                  # err = V - dec(V)
                 del payload, got
-                x.add_(mixed.sub_(d_self))                               # X_half + (mix - D_self)
-                del mixed, d_self
+                with span("gossip.mix"):
+                    x.add_(mixed.sub_(d_self))                           # X_half + (mix - D_self)
+                    del mixed, d_self
         state.aux["err_self"] = tree_from_items([(p, e) for (p, _), e in zip(err_items, errs)])
 
     run = {"cpsgd": _cpsgd, "dpsgd": _dpsgd, "naive": _naive, "dcd": _dcd, "ecd": _ecd,
            "choco": _choco, "deepsqueeze": _deepsqueeze}[algo]
 
     def step(state: DistState, batch: Dict[str, torch.Tensor]) -> Tuple[DistState, Dict]:
+        with span("step", state.step):
+            return _step(state, batch)
+
+    def _step(state: DistState, batch: Dict[str, torch.Tensor]) -> Tuple[DistState, Dict]:
         losses, metrics, grads = _node_grads(loss_fn, state.params, batch)
         lr = lr_schedule(state.step)
         t = state.opt.step + 1
@@ -578,10 +626,11 @@ def make_dist_train_step(loss_fn: Callable, algo: str, opt: Optimizer, wire, pla
             # residual) was replaced in its list; put the lists back
             state.params = tree_from_items(list(zip(paths, X)))
             state.opt.step = t
-            consensus = tp.consensus(X)
-            # every node's loss and metrics, averaged in node order
-            metrics = {k: tp.gather_nodes(v).mean() for k, v in metrics.items()}
-            loss = tp.gather_nodes(losses).mean()
+            with span("step.metrics"):
+                consensus = tp.consensus(X)
+                # every node's loss and metrics, averaged in node order
+                metrics = {k: tp.gather_nodes(v).mean() for k, v in metrics.items()}
+                loss = tp.gather_nodes(losses).mean()
         state.step += 1
         return state, {"loss": loss, "lr": lr, "consensus": consensus, **metrics}
 

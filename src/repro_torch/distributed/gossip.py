@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.core import topology as topo
 from repro_torch.core.topology import SpectralInfo
+from repro_torch.trace import span
 from repro_torch.tree import tree_map
 
 ShiftWeight = Union[float, np.ndarray]   # scalar (circulant) or (n,) per-node
@@ -405,11 +406,12 @@ def mix_leaf(plan: GossipPlan, x: torch.Tensor, neighbors: Dict[int, torch.Tenso
     plan order as the JAX package sums.  ``weights`` (``(self_w, {s: w_s})``,
     e.g. from :func:`gated_weights`) replaces the plan's own."""
     self_w, ws = weights if weights is not None else (plan.self_weight, dict(plan.shifts))
-    out = weight_for(self_w, x) * x
-    for s in plan.shift_list:
-        nb = neighbors[s]           # a lazy neighbour decodes on each access
-        out.add_(weight_for(ws[s], nb) * nb)
-    return out
+    with span("gossip.mix"):
+        out = weight_for(self_w, x) * x
+        for s in plan.shift_list:
+            nb = neighbors[s]           # a lazy neighbour decodes on each access
+            out.add_(weight_for(ws[s], nb) * nb)
+        return out
 
 
 def plan_mix(plan: GossipPlan, x: Any, neighbors: Dict[int, Any]) -> Any:

@@ -24,8 +24,12 @@ The rank transport counts what it sends, by label
 (:class:`TransportStats`): ``wire`` (encoded containers), ``dense`` (D-PSGD's
 full-precision X), ``resync`` (X at a phase boundary's rekey),
 ``allreduce`` (C-PSGD's node mean), ``metric`` (the loss and consensus
-metrics) and ``checkpoint`` (the gather to rank 0); and the host seconds of
-each, staging and copies back included.
+metrics) and ``checkpoint`` (the gather to rank 0).  Each call of either
+transport runs in the span ``transport.<label>`` (:mod:`repro_torch.trace`),
+whose host time on ranks includes staging and the copies back.  On the
+stacked transport a ``wire`` or ``dense`` span covers the whitelist check
+and the stats only: its rolls are made later, inside whichever span reads
+them.
 
 The payload whitelist (the JAX package's ``check_permute_payload_whitelist``):
 a ``wire`` exchange refuses a float32 or float64 tensor shaped like a dense
@@ -36,11 +40,12 @@ never sends a dense leaf.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, FrozenSet, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.trace import span
 
 Payload = Dict[str, torch.Tensor]
 
@@ -61,12 +66,11 @@ class Lazy(dict):
 
 @dataclasses.dataclass
 class TransportStats:
-    """What a transport was handed, by label: bytes, the dtypes and the
-    ``(dtype, shape)`` of the tensors, and the host seconds of the label's
-    exchanges and collectives.  A rank counts what it sends; the stacked
-    transport what each exchange was handed, once whatever its shifts."""
+    """What a transport was handed, by label: bytes, and the dtypes and the
+    ``(dtype, shape)`` of the tensors.  A rank counts what it sends; the
+    stacked transport what each exchange was handed, once whatever its
+    shifts."""
     sent: Dict[str, int] = dataclasses.field(default_factory=dict)
-    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     shapes: Dict[str, set] = dataclasses.field(default_factory=dict)
 
     @property
@@ -74,17 +78,15 @@ class TransportStats:
         """The dtype names handed, by label."""
         return {label: {d for d, _ in pairs} for label, pairs in self.shapes.items()}
 
-    def add(self, label: str, tensors: Iterable[torch.Tensor], seconds: float = 0.0) -> None:
+    def add(self, label: str, tensors: Iterable[torch.Tensor]) -> None:
         tensors = list(tensors)
         self.sent[label] = self.sent.get(label, 0) + sum(t.numel() * t.element_size()
                                                          for t in tensors)
         self.shapes.setdefault(label, set()).update(
             (str(t.dtype).removeprefix("torch."), tuple(t.shape)) for t in tensors)
-        self.seconds[label] = self.seconds.get(label, 0.0) + seconds
 
     def reset(self) -> None:
         self.sent.clear()
-        self.seconds.clear()
         self.shapes.clear()
 
 
@@ -129,34 +131,39 @@ class StackedTransport:
                  refuse: FrozenSet[tuple] = frozenset()) -> Mapping[int, Optional[Payload]]:
         """``{s: roll(payload, s)}`` for each shift, rolled on access.  Drops
         are the caller's (it restores the dropped rows)."""
-        _check_whitelist(payload, label, refuse)
-        self.stats.add(label, payload.values())
+        with span(f"transport.{label}"):
+            _check_whitelist(payload, label, refuse)
+            self.stats.add(label, payload.values())
         return Lazy(lambda s: {k: torch.roll(v, s, dims=0) for k, v in payload.items()})
 
     def shift_tree(self, leaves: List[torch.Tensor], s: int) -> List[torch.Tensor]:
         """Every node's copy of node ``(i - s)``'s leaves (a rekey's resync)."""
-        return [torch.roll(l, s, dims=0) for l in leaves]
+        with span("transport.resync"):
+            return [torch.roll(l, s, dims=0) for l in leaves]
 
     def node_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The mean over nodes, keeping a node axis of 1."""
-        return t.mean(dim=0, keepdim=True)
+        with span("transport.allreduce"):
+            return t.mean(dim=0, keepdim=True)
 
     def gather_nodes(self, t: torch.Tensor) -> torch.Tensor:
         """Every node's values of a (nodes, ...) tensor, stacked in node order."""
-        return t
+        with span("transport.metric"):
+            return t
 
     def consensus(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
         """``sum_leaves sum_i ||x_i - mean_j x_j||^2`` in float32, the mean
         taken of the differences to node 0, so that identical replicas give
         exactly 0 (a float32 mean of equal values need not return the
         value)."""
-        total = 0.0
-        for l in leaves:
-            l = l.to(torch.float32)
-            d = l - l[:1]
-            d.sub_(d.mean(dim=0, keepdim=True))
-            total = total + torch.sum(d.square_())
-        return total
+        with span("transport.metric"):
+            total = 0.0
+            for l in leaves:
+                l = l.to(torch.float32)
+                d = l - l[:1]
+                d.sub_(d.mean(dim=0, keepdim=True))
+                total = total + torch.sum(d.square_())
+            return total
 
 
 class RankTransport(StackedTransport):
@@ -212,8 +219,11 @@ class RankTransport(StackedTransport):
         """``{s: node (rank - s)'s payload}`` on this rank's device, or
         ``None`` where the mask dropped the edge; one batch of sends and
         receives covers every shift."""
+        with span(f"transport.{label}"):
+            return self._exchange(payload, shifts, masks, label, refuse)
+
+    def _exchange(self, payload, shifts, masks, label, refuse) -> Dict[int, Optional[Payload]]:
         _check_whitelist(payload, label, refuse)
-        t0 = time.perf_counter()
         i, n = self.rank, self.n
         keys = sorted(payload)
         out = {k: self._out(payload[k]) for k in keys}
@@ -238,7 +248,7 @@ class RankTransport(StackedTransport):
         got = {s: None if p is None else {k: self._back(v) for k, v in p.items()}
                for s, p in recv.items()}
         self._sync()
-        self.stats.add(label, sent, time.perf_counter() - t0)
+        self.stats.add(label, sent)
         return got
 
     def shift_tree(self, leaves: List[torch.Tensor], s: int) -> List[torch.Tensor]:
@@ -246,54 +256,55 @@ class RankTransport(StackedTransport):
 
     def _collective(self, t: torch.Tensor, label: str, run) -> torch.Tensor:
         """Run ``run(buffer)`` (a collective, in place) on ``t``'s staged copy;
-        returns the result on the device."""
-        t0 = time.perf_counter()
+        returns the result on the device.  The caller's span times it."""
         buf = self._out(t) if self.stage else t.clone(memory_format=torch.contiguous_format)
         self._sync()
         run(buf)
         res = self._back(buf)
         self._sync()
-        self.stats.add(label, [buf], time.perf_counter() - t0)
+        self.stats.add(label, [buf])
         return res
 
     def node_mean(self, t: torch.Tensor) -> torch.Tensor:
         """The all-reduce mean over ranks: every rank gets the same bits."""
-        summed = self._collective(t, "allreduce", self.dist.all_reduce)
-        return summed.div_(self.n)
+        with span("transport.allreduce"):
+            summed = self._collective(t, "allreduce", self.dist.all_reduce)
+            return summed.div_(self.n)
 
     def gather_nodes(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's (1, ...) values stacked in rank order: (n, ...)."""
-        t0 = time.perf_counter()
-        buf = t.detach().contiguous()
-        buf = buf.cpu() if self.stage else buf
-        parts = [torch.empty_like(buf) for _ in range(self.n)]
-        self.dist.all_gather(parts, buf)
-        self.stats.add("metric", [buf], time.perf_counter() - t0)
-        return torch.cat(parts).to(t.device)
+        with span("transport.metric"):
+            buf = t.detach().contiguous()
+            buf = buf.cpu() if self.stage else buf
+            parts = [torch.empty_like(buf) for _ in range(self.n)]
+            self.dist.all_gather(parts, buf)
+            self.stats.add("metric", [buf])
+            return torch.cat(parts).to(t.device)
 
     def gather_to_root(self, t: torch.Tensor) -> Optional[torch.Tensor]:
         """Rank 0 gets every rank's (1, ...) tensor stacked in rank order (on
         the host); the other ranks get None."""
-        t0 = time.perf_counter()
-        buf = t.detach().contiguous()
-        buf = buf.cpu() if self.stage else buf
-        parts = [torch.empty_like(buf) for _ in range(self.n)] if self.rank == 0 else None
-        self.dist.gather(buf, parts, dst=0)
-        self.stats.add("checkpoint", [buf], time.perf_counter() - t0)
-        return torch.cat(parts).cpu() if parts is not None else None
+        with span("transport.checkpoint"):
+            buf = t.detach().contiguous()
+            buf = buf.cpu() if self.stage else buf
+            parts = [torch.empty_like(buf) for _ in range(self.n)] if self.rank == 0 else None
+            self.dist.gather(buf, parts, dst=0)
+            self.stats.add("checkpoint", [buf])
+            return torch.cat(parts).cpu() if parts is not None else None
 
     def consensus(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
         """The stacked definition across ranks: node 0's params broadcast,
         the differences' mean all-reduced, the squares summed and
         all-reduced (label ``metric``)."""
         bcast = lambda b: self.dist.broadcast(b, src=0)
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for l in leaves:
-            l = l.to(torch.float32)
-            d = l - self._collective(l, "metric", bcast)
-            d.sub_(self._collective(d, "metric", self.dist.all_reduce).div_(self.n))
-            total = total + torch.sum(d.square_())
-        return self._collective(total.reshape(1), "metric", self.dist.all_reduce)[0]
+        with span("transport.metric"):
+            total = torch.zeros((), dtype=torch.float32, device=self.device)
+            for l in leaves:
+                l = l.to(torch.float32)
+                d = l - self._collective(l, "metric", bcast)
+                d.sub_(self._collective(d, "metric", self.dist.all_reduce).div_(self.n))
+                total = total + torch.sum(d.square_())
+            return self._collective(total.reshape(1), "metric", self.dist.all_reduce)[0]
 
 
 def make_transport(group, n: int) -> StackedTransport:

@@ -54,6 +54,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import trace
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
@@ -117,7 +118,10 @@ def run_training(cfg: ArchConfig, tc: TrainConfig, *, device="cuda",
     With ``group`` (``tc.n_nodes`` ranks) this process is node
     ``group.rank`` on ``group.device``: the state is its node's slice, the
     losses every node's, and ``transport`` what the rank sent
-    (:class:`~repro_torch.distributed.transport.TransportStats`)."""
+    (:class:`~repro_torch.distributed.transport.TransportStats`) and, with
+    tracing on (:mod:`repro_torch.trace`), the host seconds of its
+    ``transport.<label>`` spans by label under ``seconds``.  With tracing
+    on, the spans the run recorded are collected into ``spans``."""
     device = torch.device(device) if group is None else group.device
     say = print if group is None or group.rank == 0 else (lambda *a, **k: None)
     model = build_model(cfg)
@@ -191,10 +195,14 @@ def run_training(cfg: ArchConfig, tc: TrainConfig, *, device="cuda",
                 save(tc.ckpt_dir, t + 1, state, metadata={"loss": loss}, group=group)
     hist["wall_s"] = time.perf_counter() - t0
     hist["final_loss"] = hist["losses"][-1] if hist["losses"] else None
+    if trace.enabled():
+        hist["spans"] = trace.collect()
     if group is not None:
         st = group.stats
-        hist["transport"] = {"sent": dict(st.sent), "seconds": dict(st.seconds),
+        hist["transport"] = {"sent": dict(st.sent),
                              "dtypes": {k: sorted(v) for k, v in st.dtypes.items()}}
+        if "spans" in hist:
+            hist["transport"]["seconds"] = trace.seconds_by_name(hist["spans"], "transport.")
     hist["state"] = state
     return hist
 

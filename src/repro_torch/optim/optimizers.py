@@ -16,6 +16,7 @@ from typing import Any, Callable, Tuple
 import numpy as np
 import torch
 
+from repro_torch.trace import span
 from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map
 
 
@@ -53,15 +54,16 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0, nesterov: bool = False
         return OptState(step=0, m=m)
 
     def update_leaf(g, m, v, p, lr, t):
-        if weight_decay:
-            g = g + weight_decay * p
-        if momentum:
-            m.mul_(momentum).add_(g)
-            eff = g + momentum * m if nesterov else m
-            return -lr * eff
-        # JAX's lr is a float32 array, so the update is float32 whatever the
-        # gradient's dtype (bf16 params under ECD with bf16 estimates)
-        return -lr * g.to(torch.float32)
+        with span("optim.update"):
+            if weight_decay:
+                g = g + weight_decay * p
+            if momentum:
+                m.mul_(momentum).add_(g)
+                eff = g + momentum * m if nesterov else m
+                return -lr * eff
+            # JAX's lr is a float32 array, so the update is float32 whatever
+            # the gradient's dtype (bf16 params under ECD with bf16 estimates)
+            return -lr * g.to(torch.float32)
 
     return Optimizer("sgd", init, update_leaf)
 
@@ -73,17 +75,18 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                         v=tree_map(torch.zeros_like, params))
 
     def update_leaf(g, m, v, p, lr, t):
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        # bias corrections in float32, as ``b1 ** t.astype(f32)`` in JAX
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
-        # -lr * ((m/bc1) / (sqrt(v/bc2) + eps) + wd*p), each op rounded as
-        # in JAX; in place on two temporaries, which matters at full width
-        upd = m / bc1
-        upd.div_(torch.sqrt(v / bc2).add_(eps))
-        upd.add_(weight_decay * p)
-        return upd.mul_(-lr)
+        with span("optim.update"):
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            # bias corrections in float32, as ``b1 ** t.astype(f32)`` in JAX
+            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
+            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
+            # -lr * ((m/bc1) / (sqrt(v/bc2) + eps) + wd*p), each op rounded
+            # as in JAX; in place on two temporaries, which matters at full width
+            upd = m / bc1
+            upd.div_(torch.sqrt(v / bc2).add_(eps))
+            upd.add_(weight_decay * p)
+            return upd.mul_(-lr)
 
     return Optimizer("adamw", init, update_leaf)
 

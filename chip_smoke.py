@@ -55,6 +55,12 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    function), and for bf16 K7b ``torch.baddbmm`` on bf16 factors (the
    nearest library call, not the same function); the registers and local
    bytes of K6c's and K7b's kernel instances (``cudaFuncGetAttributes``).
+   The data layer's Markov walk (``phase_kernels_markov``) against the eager
+   walk, token for token, at the cells' batches (32 x 49,155 x 256 and 8 x
+   50,280 x 1,024) and a rank's 4 rows, three seeds each; timed beside the
+   eager walk, one CTA a row, its fixed cost and its lower bound
+   (``markov_bound``: the operations a candidate needs, each unit at its
+   peak rate).
    ``--only kernels_sparse,kernels_lowrank`` (any of ``KERNEL_PHASES``)
    builds and runs just those phases and prints no result: to time a
    parent's kernels against a change's, one process a tree.
@@ -71,7 +77,9 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    sends, 36 receives for DCD, ECD and CHOCO, 48 for DeepSqueeze; 11 K7a and
    33 K7b for DCD over ``lowrank``, one per matrix leaf and 1 + 2 shifts
    per matrix leaf; under ``adaptive`` 1 K1 + 3 K2 for ``embed`` and 8 K7a
-   + 24 K7b for the other matrices) and every other kernel none.  The
+   + 24 K7b for the other matrices) and every other kernel none, but the
+   data's Markov walk, one launch a step (``WALK_PER_STEP``), as many calls
+   as launches, here and in every run of the phases below.  The
    shared-state invariants ``rep{s} == roll(X, s)`` (DCD),
    ``tilde{s} == roll(tilde_self, s)`` (ECD) and ``hat{s} ==
    roll(hat_self, s)`` (CHOCO) are checked, and every non-zero warm factor
@@ -255,6 +263,39 @@ def bound(nbytes: int, f32_ops: int):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+SM_CLOCK_HZ = 1.98e9             # H100 SXM boost clock
+DISPATCH_PER_CLOCK = 128         # an SM's 4 schedulers, a warp instruction a clock each
+# The operations one candidate of the Markov walk needs, by the SM unit that
+# runs them: unit -> (operations a candidate, operations a clock an SM; CUDA
+# C Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0).  A transcendental counts as the one MUFU operation a fast-math build
+# would run, so the bound is a lower one: the exact walk needs the accurate
+# logf and cosf, which are longer.
+MARKOV_UNIT_OPS = {
+    # 3 PCG hashes of 3 shifts, an add and 2 xors; the xors into them; the
+    # uniforms' shifts; the argmax's compare and 2 selects; the loop's add
+    # and compare
+    "alu": (29, 64),
+    # the hashes' 6 multiply-adds; the uniforms' adds and products (6); the
+    # log2-to-ln scales (3), -2 ln u, 2 pi u, the cos's range scale, the
+    # sqrt's product, r cos, over the concentration and + gumbel
+    "fma": (22, 128),
+    "mufu": (5, 16),             # 3 log2, a cos, a reciprocal square root
+    "convert": (3, 16),          # the uniforms' integer to float
+}
+
+
+def markov_bound(sms: int, rows: int, vocab: int, length: int):
+    """(ms, unit) of the walk's lower bound: ``rows * length * vocab``
+    candidates spread over ``sms`` SMs at the boost clock, each taking the
+    clocks of its busiest unit (or of its instruction dispatch) in
+    ``MARKOV_UNIT_OPS``; the walk's barriers and reductions not counted."""
+    clocks = {unit: ops / rate for unit, (ops, rate) in MARKOV_UNIT_OPS.items()}
+    clocks["dispatch"] = sum(ops for ops, _ in MARKOV_UNIT_OPS.values()) / DISPATCH_PER_CLOCK
+    unit = max(clocks, key=clocks.get)
+    return rows * length * vocab * clocks[unit] / (sms * SM_CLOCK_HZ) * 1e3, unit
+
+
 # kernel name -> (CUDA source, TPU kernel it replaces)
 KERNELS = {
     "quantize_pack_2d": ("src/repro_torch/kernels/csrc/quant.cu",
@@ -289,7 +330,12 @@ KERNELS = {
                                     "src/repro/kernels/quant.py:684"),
     "lowrank_axpy_2d_bf16": ("src/repro_torch/kernels/csrc/lowrank.cu",
                              "src/repro/kernels/lowrank.py:92"),
+    # the data layer's Markov walk; the JAX package samples its walk with
+    # threefry keys and no TPU kernel
+    "markov_walk": ("src/repro_torch/kernels/csrc/markov.cu", "none"),
 }
+# the data's Markov walk takes its kernel once a batch, so once a training step
+WALK_PER_STEP = {"markov_walk": 1}
 # (aw, w) of the bf16-accumulator checks: DCD's and CHOCO's 1.0, and an
 # ECD-like decay
 BF16_WEIGHTS = ((1.0, 1.0), (0.75, -0.5))
@@ -298,7 +344,7 @@ KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "quantiz
                   "dequantize_kernel", "unpack_dequant_kernel", "sign_pack_kernel",
                   "unpack_sign_axpy_kernel", "sparse_select_pack_",
                   "sparse_unpack_scatter_kernel", "sparse_scatter_axpy_",
-                  "lowrank_project_kernel", "lowrank_axpy_")
+                  "lowrank_project_kernel", "lowrank_axpy_", "markov_walk_kernel")
 
 
 def max_abs_err(a, b) -> float:
@@ -956,6 +1002,65 @@ def lowrank_times(torch, lk, ref, rec: dict, label: str, mode: str, m, v, p, acc
     del out
 
 
+# (rows, vocab, length) of the Markov walks: the granite cells' batch (the
+# kernels record's shape), the mamba cell's, and a rank's rows of granite's
+MARKOV_SHAPES = ((32, 49155, 256), (8, 50280, 1024), (4, 49155, 256))
+# the data's seeds, of the benchmark's size (past 2^31 and 2^32) and small
+MARKOV_SEEDS = (3_000_000_019, 2 ** 33 + 5, 77)
+
+
+def phase_kernels_markov(torch, mk, ref, rec: dict) -> None:
+    """The data layer's Markov walk against its plain version (the eager
+    walk, ``ref.markov_walk_ref``) on the card at ``MARKOV_SHAPES``, token
+    for token, on the row keys the pipeline makes, three (seed, step) pairs
+    each.  At the two cells' shapes, timed beside: the plain version, the
+    same walk at one CTA a row (``cluster_size`` held at 1, its tokens
+    checked too), the walk's fixed cost (a vocab of one candidate a CTA:
+    what every position's reductions and cluster barrier take), and the
+    lower bound (``markov_bound``)."""
+    from repro_torch.data import DataConfig
+    from repro_torch.data import pipeline
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for rows, vocab, length in MARKOV_SHAPES:
+        label, nodes = f"{rows}x{vocab}x{length}", math.gcd(rows, 8)
+        csize = mk.cluster_size(rows, sms)
+        for i, seed in enumerate(MARKOV_SEEDS):
+            dc = DataConfig(vocab=vocab, seq_len=length, global_batch=rows, n_shards=nodes,
+                            seed=seed)
+            key = pipeline._row_keys(dc, 5 * i + 1, range(nodes), dev)
+            kw = dict(vocab=vocab, length=length, seed=seed,
+                      concentration=dc.markov_concentration)
+            got = mk.markov_walk(key, **kw)
+            want = ref.markov_walk_ref(key, **kw)
+            torch.cuda.synchronize()
+            check(ref, rec, "markov_walk", label, (got,), (want,),
+                  f"seed {seed}, {rows} clusters of {csize} CTAs")
+        if (rows, vocab, length) == MARKOV_SHAPES[2]:
+            continue
+        ms = time_ms(torch, lambda: mk.markov_walk(key, **kw), 5)
+        plain_ms = time_ms(torch, lambda: ref.markov_walk_ref(key, **kw), 1, 1)
+        fixed_ms = time_ms(torch, lambda: mk.markov_walk(key, **dict(kw, vocab=csize)), 5)
+        real = mk.cluster_size
+        mk.cluster_size = lambda rows, sms: 1
+        try:
+            one = mk.markov_walk(key, **kw)
+            one_ms = time_ms(torch, lambda: mk.markov_walk(key, **kw), 3)
+        finally:
+            mk.cluster_size = real
+        torch.cuda.synchronize()
+        check(ref, rec, "markov_walk", label, (one,), (want,), "one CTA a row")
+        lower, unit = markov_bound(sms, rows, vocab, length)
+        log(f"time markov_walk {label}: kernel {ms:.4f} ms, lower bound {lower:.4f} ms "
+            f"({unit}, {lower / ms:.1%} of it), fixed cost {fixed_ms:.4f} ms (vocab {csize}), "
+            f"one CTA a row {one_ms:.4f} ms, plain {plain_ms:.2f} ms")
+        if (rows, vocab, length) == MARKOV_SHAPES[0]:
+            rec["markov_walk"].update(ms=ms, plain_ms=plain_ms, bound=(lower, "operations"))
+        del got, want, one, key
+    torch.cuda.empty_cache()
+
+
 def max_shift_residual(torch, tree_leaves, base, others: dict) -> float:
     """max |roll(base, s) - others[s]| over every leaf and shift."""
     worst = 0.0
@@ -1007,6 +1112,14 @@ def warm_factor_snapshots(train_mod, wire):
     return snaps, lambda: setattr(train_mod, "make_dist_train_step", real)
 
 
+def walk_took_the_kernel(q, calls0: dict, counts: dict) -> None:
+    """Every call of the data's Markov walk since ``calls0`` (the wrappers'
+    ``call_counts()``) launched its kernel: as many calls as ``counts``
+    (launches, reset at the same point) holds launches."""
+    calls = q.call_counts()["markov_walk"] - calls0["markov_walk"]
+    assert calls == counts["markov_walk"], ("markov_walk", calls, counts["markov_walk"])
+
+
 def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.distributed.wire import make_wire_format
@@ -1023,12 +1136,14 @@ def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> d
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     q.reset_launch_counts()
+    calls0 = q.call_counts()
     try:
         hist = train_mod.run_training(cfg, tc, device="cuda")
     finally:
         if undo is not None:
             undo()
     counts = q.launch_counts()
+    walk_took_the_kernel(q, calls0, counts)
     peak = torch.cuda.max_memory_allocated()
     state = hist["state"]
     n_leaves = len(tree_leaves(state.params))
@@ -1064,7 +1179,7 @@ def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> d
     assert all(math.isfinite(l) for l in hist["losses"]), hist["losses"]
     assert all(math.isfinite(c) for c in hist["consensus"]), hist["consensus"]
     assert n_leaves == 12, n_leaves
-    want = {name: per_step.get(name, 0) * steps for name in counts}
+    want = {name: {**WALK_PER_STEP, **per_step}.get(name, 0) * steps for name in counts}
     assert counts == want, (counts, want)
     if algo in INVARIANTS:
         base_key, prefix = INVARIANTS[algo]
@@ -1204,11 +1319,13 @@ def phase_plan_run(torch, q, label: str, fields: dict, steps: int, launches: dic
     torch.cuda.reset_peak_memory_stats()
     rekeys, undo = rekey_watch(torch, train_mod, tc.algo)
     q.reset_launch_counts()
+    calls0 = q.call_counts()
     try:
         hist = train_mod.run_training(cfg, tc, device="cuda")
     finally:
         undo()
     counts = q.launch_counts()
+    walk_took_the_kernel(q, calls0, counts)
     peak = torch.cuda.max_memory_allocated()
     state = hist["state"]
     log(f"plan {tag}: losses={hist['losses']} consensus={hist['consensus']}")
@@ -1233,7 +1350,7 @@ def phase_plan_run(torch, q, label: str, fields: dict, steps: int, launches: dic
                 f"{dense if tc.algo == 'dpsgd' else 0} B of params a roll, "
                 f"{rolls if tc.algo == 'dpsgd' else 0} rolls a step")
     assert all(math.isfinite(v) for v in hist["losses"] + hist["consensus"]), hist
-    want = {name: launches.get(name, 0) for name in counts}
+    want = {name: launches.get(name, 0) + WALK_PER_STEP.get(name, 0) * steps for name in counts}
     assert counts == want, (counts, want)
     last = dataclasses.replace(tc, topology=phases[-1][2])
     never, fresh, row_sum, n_dropped = drop_history(last, steps, start=phases[-1][0])
@@ -1316,6 +1433,7 @@ def phase_checkpoint(torch, q) -> dict:
     assert same_restore and diff == 0.0 and loss_diff == 0.0, (same_restore, diff, loss_diff)
     assert counts["quantize_pack_2d"] == 6 * n_leaves, counts
     assert counts["unpack_dequant_axpy_2d"] == 18 * n_leaves, counts
+    assert counts["markov_walk"] == 6, counts                 # 4 steps, then 2 resumed
     shutil.rmtree(root, ignore_errors=True)
     return counts
 
@@ -1368,6 +1486,7 @@ def phase_stacked(torch, q, algo: str, comp, per_step: dict, steps: int = 2) -> 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     q.reset_launch_counts()
+    calls0 = q.call_counts()
     state = alg.init(model.init(0, device="cuda"))
     step = alg.step_fn()
     losses, consensus, step_s = [], [], []
@@ -1380,6 +1499,7 @@ def phase_stacked(torch, q, algo: str, comp, per_step: dict, steps: int = 2) -> 
         step_s.append(time.perf_counter() - ts)
         consensus.append(float(consensus_distance(state.params)))
     counts = q.launch_counts()
+    walk_took_the_kernel(q, calls0, counts)
     peak = torch.cuda.max_memory_allocated()
     log(f"{tag}: losses={losses} consensus_distance={consensus}")
     log(f"{tag}: step_s={[round(x, 4) for x in step_s]} peak_memory_allocated={peak} B "
@@ -1388,7 +1508,7 @@ def phase_stacked(torch, q, algo: str, comp, per_step: dict, steps: int = 2) -> 
     nbytes = comp.wire.wire_nbytes(state.params)
     log(f"{tag}: wire_nbytes per step {nbytes} B for the 8 nodes' payloads")
     assert all(math.isfinite(v) for v in losses + consensus), (losses, consensus)
-    want = {name: per_step.get(name, 0) * steps for name in counts}
+    want = {name: {**WALK_PER_STEP, **per_step}.get(name, 0) * steps for name in counts}
     assert counts == want, (counts, want)
     del state
     torch.cuda.empty_cache()
@@ -1573,7 +1693,7 @@ def phase_analysis(torch, q) -> dict:
     for algo, wire, drop in ANALYSIS_FULL_WIDTH:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        before = q.launch_counts()
+        before, calls0 = q.launch_counts(), q.call_counts()
         testbed = (model.loss, model.init(tc.seed, device="cuda"),
                    stacked_node_batches(dc, 0, cfg, device="cuda"))
         rep = step_checks.analyze_case(
@@ -1587,6 +1707,9 @@ def phase_analysis(torch, q) -> dict:
             f"{list(rep.permute_dtypes)}; launches with kernels_per_site's {counts}; "
             f"{time.perf_counter() - t0:.1f} s")
         check(rep)
+        # the testbed's one batch took the walk kernel
+        assert counts["markov_walk"] == 1, counts
+        walk_took_the_kernel(q, calls0, counts)
     torch.cuda.empty_cache()
     totals = {k: v - launches0[k] for k, v in q.launch_counts().items()}
     log(f"analysis: {time.perf_counter() - t_phase:.1f} s; {gpu_name_and_power()}")
@@ -1971,7 +2094,8 @@ def phase_ranks(torch, q, cfg=None, device="cuda") -> dict:
                 f"peak_memory_allocated={r['peak']} B launches "
                 f"{ {k: v for k, v in r['counts'].items() if v} }")
             assert all(math.isfinite(v) for v in r["losses"]), r["losses"]
-            want = {name: per_step.get(name, 0) * steps for name in r["counts"]}
+            want = {name: {**WALK_PER_STEP, **per_step}.get(name, 0) * steps
+                    for name in r["counts"]}
             assert r["counts"] == want, (rank, r["counts"], want)
             for name, c in r["counts"].items():
                 totals[name] = totals.get(name, 0) + c
@@ -2360,12 +2484,14 @@ def phase_train_families(torch, q, arch: str, n_layers: int, n_nodes: int, seq_l
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     q.reset_launch_counts()
+    calls0 = q.call_counts()
     train_mod.make_dist_train_step = traced
     try:
         hist = train_mod.run_training(cfg, tc, device=DEVICE)
     finally:
         train_mod.make_dist_train_step = real
     counts = q.launch_counts()
+    walk_took_the_kernel(q, calls0, counts)
     peak = torch.cuda.max_memory_allocated()
     state = hist["state"]
     leaves = tree_leaves(state.params)
@@ -2386,7 +2512,8 @@ def phase_train_families(torch, q, arch: str, n_layers: int, n_nodes: int, seq_l
     wf = make_wire_format("quant:8")
     sends = sum(wf._kernel_ok(wf._block_for(l.shape[-1])) for l in leaves)
     want = {name: 0 for name in counts}
-    want.update(quantize_2d=sends * steps, dequantize_2d=len(leaves) * (1 + len(shifts)) * steps)
+    want.update(quantize_2d=sends * steps, dequantize_2d=len(leaves) * (1 + len(shifts)) * steps,
+                markov_walk=WALK_PER_STEP["markov_walk"] * steps)
     assert counts == want, (counts, want)
     resid = max_shift_residual(torch, tree_leaves, state.params,
                                {s: state.aux[f"rep{s:+d}"] for s in shifts})
@@ -2654,11 +2781,12 @@ def phase_dryrun_plan(torch, q) -> dict:
 
 
 # the kernel phases ``--only`` runs; each takes (torch, the wrappers' module,
-# ref, rec), K7's ``kernels/lowrank.py`` and the others' ``kernels/quant.py``
+# ref, rec): K7's ``kernels/lowrank.py``, the walk's ``kernels/markov.py``
+# and the others' ``kernels/quant.py``
 KERNEL_PHASES = {"kernels": phase_kernels, "kernels_sign": phase_kernels_sign,
                  "kernels_sparse": phase_kernels_sparse, "kernels_decode": phase_kernels_decode,
                  "kernels_sparse_decode": phase_kernels_sparse_decode,
-                 "kernels_lowrank": phase_kernels_lowrank}
+                 "kernels_lowrank": phase_kernels_lowrank, "kernels_markov": phase_kernels_markov}
 # the path phases ``--only`` runs; each takes (torch, the wrappers' module)
 PATH_PHASES = {"gossip_reference": phase_gossip_reference, "analysis": phase_analysis}
 
@@ -2682,6 +2810,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     from repro_torch.kernels import lowrank as lk
+    from repro_torch.kernels import markov as mk
     from repro_torch.kernels import quant as q
     from repro_torch.kernels import ref
 
@@ -2696,7 +2825,8 @@ def main() -> int:
             if name in PATH_PHASES:
                 PATH_PHASES[name](torch, q)
             else:
-                KERNEL_PHASES[name](torch, lk if name == "kernels_lowrank" else q, ref, rec)
+                module = {"kernels_lowrank": lk, "kernels_markov": mk}.get(name, q)
+                KERNEL_PHASES[name](torch, module, ref, rec)
         log(f"{','.join(only)}: {time.perf_counter() - t0:.1f} s; {gpu_name_and_power()}")
         return 0
     meta_proc = start_meta_records(meta_cores)
@@ -2709,6 +2839,7 @@ def main() -> int:
     phase_kernels_sparse_decode(torch, q, ref, rec)
     phase_kernels_lowrank(torch, lk, ref, rec)
     phase_kernel_offsets(torch, q, ref, rec)
+    phase_kernels_markov(torch, mk, ref, rec)
     log(f"phases through kernels: {time.perf_counter() - t0:.1f} s")
     totals = {name: 0 for name in KERNELS}
     runs = [phase_train(torch, algo, wire, steps, per_step, q)

@@ -20,7 +20,9 @@ The generator is the counter-based PCG hash of ``kernels/ref.py`` in int64
 arithmetic: deterministic on a given device (the float ``log``/``cos`` of
 the CPU and the GPU may round differently, so a near-tie can resolve to
 another token across devices), and not threefry: batches differ from the JAX
-package's for the same seed.
+package's for the same seed.  On the card the whole walk of a batch is one
+kernel (``kernels/markov.py``), bit-equal to the eager walk there; a CPU key
+takes the eager walk (``kernels/ref.py`` ``markov_walk_ref``).
 
 For a frontend (VLM patches, audio frames) a batch also carries
 ``extra_embeds`` (per_shard, n_tokens, dim): standard normals (Box-Muller on
@@ -32,14 +34,14 @@ normal draws do; a vision frontend's patches take ``n_tokens`` of the
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 
-from repro_torch.kernels.ref import MASK32, pcg_hash
+from repro_torch.kernels.markov import markov_walk
+from repro_torch.kernels.ref import MASK32, mix_hash, normal_from_hash
 from repro_torch.trace import span
 
 
@@ -53,30 +55,7 @@ class DataConfig:
     markov_concentration: float = 0.3   # smaller = more structure (lower entropy)
 
 
-def _mix(h, x):
-    """Fold one more counter into a hash (int64 tensors or ints, in [0, 2^32))."""
-    return pcg_hash((pcg_hash(h) ^ x) & MASK32)
-
-
-def _uniform_open(h: torch.Tensor) -> torch.Tensor:
-    """f32 uniform in (0, 1) from a 32-bit hash."""
-    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-
-
 _EMBED_STREAM = 0x5A17E3B1
-
-
-def _normal(h: torch.Tensor) -> torch.Tensor:
-    """Standard normal from a 32-bit hash (Box-Muller on two uniforms)."""
-    u1 = _uniform_open(h)
-    u2 = _uniform_open(pcg_hash(h ^ 0x9E3779B9))
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
-
-
-def _transition_logits(cfg: DataConfig, tok: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
-    """(R, 1) current tokens x (V,) candidates -> (R, V) normal logits / concentration."""
-    h = _mix(_mix(torch.full_like(tok, (cfg.seed + 7919) & MASK32), tok), nxt)
-    return _normal(h) / cfg.markov_concentration
 
 
 def _row_keys(cfg: DataConfig, step: int, shards: Sequence[int], device) -> torch.Tensor:
@@ -84,28 +63,23 @@ def _row_keys(cfg: DataConfig, step: int, shards: Sequence[int], device) -> torc
     per = cfg.global_batch // cfg.n_shards
     shard_ids = torch.tensor(list(shards), dtype=torch.int64, device=device)
     rows = torch.arange(per, dtype=torch.int64, device=device)
-    base = _mix(torch.full((), cfg.seed & MASK32, dtype=torch.int64, device=device), step & MASK32)
-    return _mix(_mix(base, shard_ids)[:, None], rows[None, :]).reshape(-1, 1)
+    base = mix_hash(torch.full((), cfg.seed & MASK32, dtype=torch.int64, device=device),
+                    step & MASK32)
+    return mix_hash(mix_hash(base, shard_ids)[:, None], rows[None, :]).reshape(-1, 1)
 
 
 def _markov_rows(cfg: DataConfig, key: torch.Tensor, length: int) -> torch.Tensor:
-    """(R, length + 1) int64 token walks, one a row key."""
-    cand = torch.arange(cfg.vocab, dtype=torch.int64, device=key.device)
-    tok = pcg_hash(key) % cfg.vocab
-    seq = [tok]
-    for pos in range(length):
-        noise = _uniform_open(_mix(_mix(key, pos), cand))
-        gumbel = -torch.log(-torch.log(noise))
-        tok = torch.argmax(_transition_logits(cfg, tok, cand) + gumbel, dim=-1, keepdim=True)
-        seq.append(tok)
-    return torch.cat(seq, dim=1)
+    """(R, length + 1) int64 token walks, one a row key: one kernel launch for
+    a CUDA key, the eager walk for a CPU key (``kernels/markov.py``)."""
+    return markov_walk(key, vocab=cfg.vocab, length=length, seed=cfg.seed,
+                       concentration=cfg.markov_concentration)
 
 
 def _frontend_embeds(key: torch.Tensor, n_tokens: int, dim: int) -> torch.Tensor:
     """(R, n_tokens, dim) float32 standard normals, one stream a row key."""
     idx = torch.arange(n_tokens * dim, dtype=torch.int64, device=key.device)
-    h = _mix(_mix(key ^ _EMBED_STREAM, 0), idx)
-    return _normal(h).reshape(-1, n_tokens, dim)
+    h = mix_hash(mix_hash(key ^ _EMBED_STREAM, 0), idx)
+    return normal_from_hash(h).reshape(-1, n_tokens, dim)
 
 
 def _text_len(cfg: DataConfig, arch: Optional[ArchConfig]) -> int:

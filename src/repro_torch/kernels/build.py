@@ -66,6 +66,10 @@ SIGNATURES = {
         "lowrank_axpy_2d_path": (_I, _I, _P, _P),
         "lowrank_kernel_attrs": (_I, _P, _P, _P, _I),
     },
+    "markov": {
+        "markov_walk_launch": (_P, _P, _I, _I, _I, _U32, _F, _I, _P),
+        "markov_scores_launch": (_P, _P, _P, _I, _I, _I, _U32, _F, _P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -2,9 +2,9 @@
 (K2), quantize (K3), dequantize (K4a) and unpack-dequantize (K4b) in
 ``csrc/quant.cu``, sign-pack (K5a) and unpack-sign-axpy (K5b) in
 ``csrc/sign.cu``, sparse select-pack (K6), unpack-scatter (K6b) and
-scatter-axpy (K6c) in ``csrc/sparse.cu``; the launch counters of these and
-of the low-rank kernels (K7a, K7b, ``kernels/lowrank.py``) in
-:data:`KERNEL_WRAPPERS`.
+scatter-axpy (K6c) in ``csrc/sparse.cu``; the launch counters of these, of
+the low-rank kernels (K7a, K7b, ``kernels/lowrank.py``) and of the data
+layer's Markov walk (``kernels/markov.py``) in :data:`KERNEL_WRAPPERS`.
 
 Same signatures and the same ``(rows, cols)`` contract as the JAX package's
 functions of the same names: one block per row, ``cols % 128 == 0`` — but
@@ -37,6 +37,7 @@ from repro_torch.kernels.lowrank import (
     lowrank_axpy_2d,
     lowrank_project_2d,
 )
+from repro_torch.kernels.markov import markov_walk
 from repro_torch.kernels.ref import (
     MASK32,
     PACKABLE_BITS,
@@ -471,7 +472,8 @@ KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, quantize_2d, dequan
                    unpack_dequant_2d, sign_pack_2d, unpack_sign_axpy_2d,
                    sparse_select_pack_2d, sparse_unpack_scatter_2d, sparse_scatter_axpy_2d,
                    lowrank_project_2d, lowrank_axpy_2d, UNPACK_DEQUANT_AXPY_2D_BF16,
-                   UNPACK_SIGN_AXPY_2D_BF16, SPARSE_SCATTER_AXPY_2D_BF16, LOWRANK_AXPY_2D_BF16)
+                   UNPACK_SIGN_AXPY_2D_BF16, SPARSE_SCATTER_AXPY_2D_BF16, LOWRANK_AXPY_2D_BF16,
+                   markov_walk)
 
 
 def reset_launch_counts() -> None:

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the wire kernels: quantize-pack and
 unpack-dequant-axpy, quantize, dequantize and unpack-dequantize, sign-pack
 and sign-axpy, sparse select-pack, unpack-scatter and scatter-axpy,
-low-rank project and low-rank axpy.
+low-rank project and low-rank axpy; and of the data layer's Markov walk
+(:func:`markov_walk_ref`, the data pipeline's eager walk).
 
 The port's copy of the JAX package's ``kernels/ref.py`` and the helpers of
 ``kernels/quant.py`` (``stream_geometry``, ``idx_bits_for``,
@@ -571,6 +572,60 @@ def lowrank_axpy_2d_ref(p: torch.Tensor, v: torch.Tensor, acc: torch.Tensor, *,
     for b in range(accf.shape[0]):
         out[b] = aw * accf[b] + w * _factor_matmul(p[b], v[b])
     return out.reshape(acc.shape).to(dtype)
+
+
+# ---------------------------------------------------- the data's Markov walk
+
+MARKOV_SALT = 7919          # the transition logits' hash stream: seed + MARKOV_SALT
+
+
+def mix_hash(h, x):
+    """Fold one more counter into a hash (int64 tensors or ints, in [0, 2^32))."""
+    return pcg_hash((pcg_hash(h) ^ x) & MASK32)
+
+
+def uniform_open(h: torch.Tensor) -> torch.Tensor:
+    """f32 uniform in (0, 1] from a 32-bit hash (the top 2^-24 of hashes
+    round to 1.0)."""
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def normal_from_hash(h: torch.Tensor) -> torch.Tensor:
+    """Standard normal from a 32-bit hash (Box-Muller on two uniforms)."""
+    u1 = uniform_open(h)
+    u2 = uniform_open(pcg_hash(h ^ 0x9E3779B9))
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+
+
+def markov_logits_ref(tok: torch.Tensor, cand: torch.Tensor, *, seed: int,
+                      concentration: float) -> torch.Tensor:
+    """(R, 1) current tokens x (V,) candidates -> (R, V) normal transition
+    logits over ``concentration``."""
+    h = mix_hash(mix_hash(torch.full_like(tok, (seed + MARKOV_SALT) & MASK32), tok), cand)
+    return normal_from_hash(h) / concentration
+
+
+def markov_gumbel_ref(key: torch.Tensor, pos: int, cand: torch.Tensor) -> torch.Tensor:
+    """(R, 1) row keys x (V,) candidates -> (R, V) Gumbel noise at ``pos``."""
+    return -torch.log(-torch.log(uniform_open(mix_hash(mix_hash(key, pos), cand))))
+
+
+def markov_walk_ref(key: torch.Tensor, *, vocab: int, length: int, seed: int,
+                    concentration: float) -> torch.Tensor:
+    """Plain version of the walk kernel (``csrc/markov.cu``): (R, 1) int64
+    row keys -> (R, length + 1) int64 token walks.  The first token is the
+    key's hash mod ``vocab``; each next one ``argmax(logits + gumbel)`` over
+    every candidate, eagerly, a few elementwise passes over (R, vocab) a
+    position."""
+    cand = torch.arange(vocab, dtype=torch.int64, device=key.device)
+    tok = pcg_hash(key) % vocab
+    seq = [tok]
+    for pos in range(length):
+        gumbel = markov_gumbel_ref(key, pos, cand)
+        logits = markov_logits_ref(tok, cand, seed=seed, concentration=concentration)
+        tok = torch.argmax(logits + gumbel, dim=-1, keepdim=True)
+        seq.append(tok)
+    return torch.cat(seq, dim=1)
 
 
 # ------------------------------------------------------------- comparison

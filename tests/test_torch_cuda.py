@@ -1,8 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K3,
 K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b, and the bf16-accumulator
-variants of K2, K5b, K6c and K7b, against their plain versions; the
-dryrun's executed smoke on the card; the step analyzer's grid on the card
-(``repro_torch.analysis.step_checks``).
+variants of K2, K5b, K6c and K7b, and the data layer's Markov walk,
+against their plain versions; the dryrun's executed smoke on the card; the
+step analyzer's grid on the card (``repro_torch.analysis.step_checks``).
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -883,3 +883,82 @@ def test_no_wrapper_takes_its_plain_version_in_a_card_step(cuda):
     dl = {k: v - launches[k] for k, v in q.launch_counts().items() if v != launches[k]}
     assert dc == dl == {"quantize_pack_2d": 2, "unpack_dequant_axpy_2d": 6,
                         "unpack_dequant_2d": 3}, (dc, dl)
+
+
+# ------------------------------------------------------------ the Markov walk
+
+# (rows, vocab, length): both cells' batches, a rank's rows, one row, a vocab
+# below the cluster size, one under a thread's candidate, slices of 512 and
+# 513 candidates a CTA (one or two a thread), and vocabs no power of two divides
+MARKOV_WALK_SHAPES = [(32, 49155, 256), (8, 50280, 1024), (4, 49155, 256), (1, 5000, 64),
+                      (3, 7, 40), (8, 300, 48), (8, 8192, 48), (8, 8193, 48), (32, 2049, 48),
+                      (6, 10007, 64)]
+# (seed, step): past 2^31 and 2^32 as the benchmark's seeds are
+MARKOV_SEED_STEPS = [(3_000_000_000 + 7919 * i + (i % 3) * 2 ** 33, 5 * i + i % 4)
+                     for i in range(16)]
+
+
+def _markov_keys(rows: int, seed: int, step: int, device) -> torch.Tensor:
+    from repro_torch.data import DataConfig
+    from repro_torch.data import pipeline
+
+    nodes = math.gcd(rows, 8)
+    cfg = DataConfig(vocab=2, seq_len=1, global_batch=rows, n_shards=nodes, seed=seed)
+    return pipeline._row_keys(cfg, step, range(nodes), device)
+
+
+@pytest.mark.parametrize("rows,vocab,length", MARKOV_WALK_SHAPES,
+                         ids=lambda v: str(v))
+def test_markov_walk_kernel_token_equal(cuda, rows, vocab, length):
+    """The walk kernel's tokens against the eager walk on the card
+    (``ref.markov_walk_ref``, what the data pipeline runs for a CPU key),
+    token for token, at 16 (seed, step) pairs."""
+    from repro_torch.kernels import markov as mk
+
+    conc = 0.3 if vocab > 10007 else 0.7
+    for seed, step in MARKOV_SEED_STEPS:
+        key = _markov_keys(rows, seed, step, cuda)
+        before = mk.markov_walk.launches
+        got = mk.markov_walk(key, vocab=vocab, length=length, seed=seed, concentration=conc)
+        want = ref.markov_walk_ref(key, vocab=vocab, length=length, seed=seed,
+                                   concentration=conc)
+        torch.cuda.synchronize()
+        assert mk.markov_walk.launches == before + 1
+        bad = (got != want).nonzero()
+        assert bad.numel() == 0, (seed, step, bad.shape[0], bad[:4].tolist())
+
+
+@pytest.mark.parametrize("rows,vocab,pos", [(32, 49155, 0), (32, 49155, 255), (8, 50280, 1023),
+                                            (3, 7, 5), (5, 10007, 17)])
+@pytest.mark.parametrize("conc", [0.3, 0.7])
+def test_markov_scores_bit_equal(cuda, rows, vocab, pos, conc):
+    """One position's scores from the walk kernel's device function equal
+    the eager walk's ``logits + gumbel`` bit for bit: a rounding difference
+    could hide behind an unchanged argmax."""
+    from repro_torch.kernels import markov as mk
+
+    cand = torch.arange(vocab, dtype=torch.int64, device=cuda)
+    for seed, step in MARKOV_SEED_STEPS[:4]:
+        key = _markov_keys(rows, seed, step, cuda)
+        tok = ref.pcg_hash(key ^ 0x5EED) % vocab
+        got = mk.markov_scores(key, tok, pos, vocab=vocab, seed=seed, concentration=conc)
+        want = (ref.markov_logits_ref(tok, cand, seed=seed, concentration=conc)
+                + ref.markov_gumbel_ref(key, pos, cand))
+        torch.cuda.synchronize()
+        assert ref.same_bits(got, want), (seed, step, (got != want).sum().item())
+
+
+def test_markov_walk_launches_equal_calls_in_a_batch(cuda):
+    """A stacked batch and a shard's batch each take the kernel once."""
+    from repro_torch.data import DataConfig, sample_batch, stacked_node_batches
+    from repro_torch.kernels import markov as mk
+
+    cfg = DataConfig(vocab=49155, seq_len=32, global_batch=32, n_shards=8, seed=2 ** 33 + 1)
+    calls, launches = mk.markov_walk.calls, mk.markov_walk.launches
+    stacked = stacked_node_batches(cfg, 4, device=cuda)
+    one = sample_batch(cfg, 4, 3, device=cuda)
+    torch.cuda.synchronize()
+    assert mk.markov_walk.calls - calls == mk.markov_walk.launches - launches == 2
+    assert torch.equal(one["tokens"], stacked["tokens"][3])
+    assert torch.equal(stacked["labels"][..., :-1], stacked["tokens"][..., 1:])
+

@@ -127,6 +127,8 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     tq.unpack_sign_axpy_2d(signs, sign_scale, xb, weight=1.0)
     tq.sparse_scatter_axpy_2d(vals, idx, xb, weight=1.0)
     tq.lowrank_axpy_2d(p, torch.zeros((256, 2)), xb, weight=1.0)
+    tq.markov_walk(torch.zeros((2, 1), dtype=torch.int64), vocab=7, length=3, seed=1,
+                   concentration=0.3)                             # the data's Markov walk
     assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0,
                                   "quantize_2d": 0, "dequantize_2d": 0,
                                   "unpack_dequant_2d": 0,
@@ -137,7 +139,7 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
                                   "unpack_dequant_axpy_2d_bf16": 0,
                                   "unpack_sign_axpy_2d_bf16": 0,
                                   "sparse_scatter_axpy_2d_bf16": 0,
-                                  "lowrank_axpy_2d_bf16": 0}
+                                  "lowrank_axpy_2d_bf16": 0, "markov_walk": 0}
     for fn in tq.KERNEL_WRAPPERS:                                 # the counter is the wrapper's
         fn.launches = 3
     assert set(tq.launch_counts().values()) == {3}

@@ -4,8 +4,9 @@ Tracing off, a step records no span, and its state is bit-equal to the same
 steps traced.  Traced, every span name appears a known number of times a
 step, every parent is in its child's step, and self times add up inside
 the ``step`` span.  Every call of a kernel wrapper (``build.count_call``)
-runs inside ``gossip.encode`` (the send kernels) or ``gossip.decode`` (the
-receive kernels), for every algorithm that encodes.  The step analyzer
+runs inside ``gossip.encode`` (the send kernels), ``gossip.decode`` (the
+receive kernels) or ``data.batch`` (the data's Markov walk, once a batch),
+for every algorithm that encodes.  The step analyzer
 finds no host read with tracing on.  On ranks, ``run_training`` reports the
 ``transport.<label>`` spans' seconds only when tracing is on.  The model is
 granite-3-2b's reduced config cut to one layer of width 64, on a ring of 4.
@@ -136,10 +137,13 @@ def test_kernel_calls_run_inside_encode_and_decode(algo, wire, monkeypatch):
     monkeypatch.setattr(build, "count_call", counted)
     _, spans = _run(algo, wire, True)
     assert calls
+    assert sum(name == "markov_walk" for name, _ in calls) == STEPS
     for name, t in calls:
         inner = max((s for s in spans if s[3] <= t <= s[4]), key=lambda s: s[3])
-        assert inner[0] == ("gossip.encode" if name in SEND else "gossip.decode"), name
-        assert name in SEND | RECEIVE, name
+        home = ("data.batch" if name == "markov_walk" else
+                "gossip.encode" if name in SEND else "gossip.decode")
+        assert inner[0] == home, name
+        assert name in SEND | RECEIVE | {"markov_walk"}, name
 
 
 @pytest.mark.parametrize("algo,topology,wire", [("dcd", "ring", "quant:4"),

@@ -1,10 +1,11 @@
 """Find a cell's files by the names ``BENCHMARK.json`` gives.
 
 A workload names a configuration and a traffic mix; the configuration's
-entry names its file, the mix is ``bench/traffic/<traffic>.json``, the
-limits of its comparison ``bench/limits/<workload>.json``, and each
-per-layer metric is read by ``bench/metrics/<metric>.py``'s ``read``.
-Adding a cell, a configuration or a metric adds files and entries only.
+entry names its file, whose ``family`` is ``bench/families/<family>.py``;
+the mix is ``bench/traffic/<traffic>.json``, the limits of its comparison
+``bench/limits/<workload>.json``, and each per-layer metric is read by
+``bench/metrics/<metric>.py``'s ``read``.  Adding a cell, a configuration,
+a model family or a metric adds files and entries only.
 """
 from __future__ import annotations
 
@@ -48,10 +49,12 @@ def find(root: pathlib.Path, workload: str) -> Cell:
     w = cells[workload]
     conf = {c["name"]: c for c in spec["configs"]}[w["config"]]
     bench = root / "bench"
+    config = json.loads((root / conf["file"]).read_text())
+    config["bench_root"] = str(root)     # where its family's file is found
     return Cell(
         name=workload,
         config_name=w["config"],
-        config=json.loads((root / conf["file"]).read_text()),
+        config=config,
         traffic_name=w["traffic"],
         traffic=json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text()),
         chips=int(w["chips"]),

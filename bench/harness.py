@@ -25,11 +25,11 @@ import heapq
 import math
 import pathlib
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, get_args, get_type_hints
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, SSMSpec
+from repro_torch.configs.base import ArchConfig
 from repro_torch.data import DataConfig, sample_batch, stacked_node_batches
 from repro_torch.distributed.decentralized import (
     WIRE_ALGOS,
@@ -43,7 +43,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import linear_warmup_cosine
 from repro_torch.tree import leaf_items
 
-from bench import cells, compare, weights, yardstick
+from bench import cells, compare, families, weights, yardstick
 from bench.cells import Cell
 from bench.reference import train as reference
 
@@ -55,11 +55,21 @@ GOSSIP_LABELS = ("wire", "dense")   # the transport's labels of the gossip excha
 
 
 def arch_config(cell: Cell) -> ArchConfig:
+    """The program's configuration of the cell: the common fields, and the
+    family's (``bench/families/<family>.py`` ``arch``), each nested dict as
+    the spec class of its ``ArchConfig`` field."""
     c = cell.config
+    hints = get_type_hints(ArchConfig)
+    extra = {}
+    for field, value in families.of(c).arch(c).items():
+        if isinstance(value, dict):
+            spec = next(t for t in get_args(hints[field]) if t is not type(None))
+            value = spec(**{k: tuple(v) if isinstance(v, list) else v for k, v in value.items()})
+        extra[field] = value
     return ArchConfig(name=cell.config_name, family=c["family"], n_layers=c["n_layers"],
                       d_model=c["d_model"], n_heads=c["n_heads"], n_kv_heads=c["n_kv_heads"],
                       d_ff=c["d_ff"], vocab=c["vocab"], rope_theta=c.get("rope_theta", 1e4),
-                      ssm=SSMSpec(**c["ssm"]) if c.get("ssm") else None)
+                      **extra)
 
 
 class Program:

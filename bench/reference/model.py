@@ -1,24 +1,16 @@
-"""Plain float32 forward passes and losses of the benchmark's model families.
+"""Plain float32 forward passes and losses of the benchmark's models.
 
 Written from the architectures' equations, in float32 with TF32 off, on
-parameter trees keyed as the configuration file's families name them:
+parameter trees as :mod:`bench.weights` lays them out: the embedding, the
+layers of the configuration's family (``bench/families/<family>.py``
+``block``, one layer at a time, stack by stack), a final RMSNorm (eps 1e-6)
+and an untied LM head over the vocabulary padded to a multiple of 256.  The
+loss is the mean token cross-entropy over those padded columns, plus the
+loss terms the layers add.
 
-* ``dense`` (granite-3-2b): pre-norm decoder layers, RMSNorm (eps 1e-6),
-  grouped-query causal attention with rotary embeddings (rotate-half form,
-  base ``rope_theta``), SwiGLU MLP ``wo(silu(x wg) * (x wi))``;
-* ``ssm`` (mamba2-370m): pre-norm Mamba2 mixers: separate z, x, BC and dt
-  projections, causal depthwise conv (width 4) and SiLU over ``[x | B | C]``,
-  ``dt = softplus(x wdt + dt_bias)``, the SSD scan with ``A = -exp(A_log)``
-  and skip ``D`` evaluated chunk by chunk (intra-chunk quadratic form plus
-  the carried state), RMSNorm (eps 1e-6) gated by ``silu(z)``, out
-  projection.
-
-Both end in a final RMSNorm and an untied LM head over the vocabulary padded
-to a multiple of 256, and the loss is the mean token cross-entropy over
-those padded columns.  Departures from the published models, which the
-program shares: granite-3.0's embedding, attention, residual and logit
-multipliers and its tied embeddings are left out; the conv has a bias and no
-group norm over heads.
+The primitives the families share live here: :func:`dense` (a projection,
+or the float8 control's), :func:`rmsnorm`, :func:`rope` (rotate-half),
+:func:`swiglu` and :func:`ssd_scan`.
 
 ``precision="fp8"`` is the control: every projection runs on float8 operands
 (e4m3 forward, e5m2 gradients, each tensor scaled by its absolute maximum),
@@ -26,10 +18,10 @@ as a float8 training recipe would, and the rest stays float32.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
+
+from bench import families, weights
 
 FP8_FORWARD = torch.float8_e4m3fn
 FP8_BACKWARD = torch.float8_e5m2
@@ -57,17 +49,18 @@ class _Fp8Dense(torch.autograd.Function):
         return gx, gw
 
 
-def _dense(x, w, precision: str):
+def dense(x, w, precision: str):
+    """``x @ w``, or on float8 operands for the control."""
     if precision == "fp8":
         return _Fp8Dense.apply(x, w)
     return x @ w
 
 
-def _rmsnorm(x, g, eps: float = 1e-6):
+def rmsnorm(x, g, eps: float = 1e-6):
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * g
 
 
-def _rope(x, theta: float):
+def rope(x, theta: float):
     """x (B, S, H, D), rotate-half with frequencies ``theta^(-2i/D)``."""
     d, s = x.shape[-1], x.shape[1]
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d))
@@ -77,26 +70,9 @@ def _rope(x, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _attention(x, p, cfg: dict, precision: str):
-    b, s, _ = x.shape
-    h, kv = cfg["n_heads"], cfg["n_kv_heads"]
-    hd = cfg["d_model"] // h
-    q = _rope(_dense(x, p["wq"], precision).reshape(b, s, h, hd), cfg["rope_theta"])
-    k = _rope(_dense(x, p["wk"], precision).reshape(b, s, kv, hd), cfg["rope_theta"])
-    v = _dense(x, p["wv"], precision).reshape(b, s, kv, hd)
-    # query head j reads key/value head j // (h // kv)
-    k = k.repeat_interleave(h // kv, dim=2)
-    v = v.repeat_interleave(h // kv, dim=2)
-    scores = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(hd)
-    causal = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
-    scores = scores.masked_fill(~causal, float("-inf"))
-    out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
-    return _dense(out.reshape(b, s, h * hd), p["wo"], precision)
-
-
-def _swiglu(x, p, precision: str):
-    return _dense(F.silu(_dense(x, p["wg"], precision)) * _dense(x, p["wi"], precision),
-                  p["wo"], precision)
+def swiglu(x, p, precision: str):
+    return dense(F.silu(dense(x, p["wg"], precision)) * dense(x, p["wi"], precision),
+                 p["wo"], precision)
 
 
 def ssd_scan(x, dt, a_log, bm, cm, d_skip, chunk: int):
@@ -128,37 +104,34 @@ def ssd_scan(x, dt, a_log, bm, cm, d_skip, chunk: int):
     return torch.cat(ys, dim=1) + x * d_skip[None, None, :, None]
 
 
-def _mamba2(u, p, cfg: dict, precision: str):
-    ssm = cfg["ssm"]
-    b, s, _ = u.shape
-    di, n, h, g = ssm["d_inner"], ssm["d_state"], ssm["n_heads"], ssm["n_groups"]
-    z = _dense(u, p["wz"], precision)
-    xbc = torch.cat([_dense(u, p["wx"], precision), _dense(u, p["wbc"], precision)], dim=-1)
-    k = p["conv_w"].shape[0]
-    padded = F.pad(xbc, (0, 0, k - 1, 0))
-    conv = sum(padded[:, i:i + s] * p["conv_w"][i] for i in range(k))
-    xbc = F.silu(conv + p["conv_b"])
-    x = xbc[..., :di].reshape(b, s, h, di // h)
-    bm = xbc[..., di:di + g * n].reshape(b, s, g, n)
-    cm = xbc[..., di + g * n:].reshape(b, s, g, n)
-    dt = F.softplus(_dense(u, p["wdt"], precision) + p["dt_bias"])
-    y = ssd_scan(x, dt, p["A_log"], bm, cm, p["D"], ssm["chunk"]).reshape(b, s, di)
-    y = _rmsnorm(y, p["norm_g"]) * F.silu(z)
-    return _dense(y, p["out_proj"], precision)
+def _layers(cfg: dict, params: dict):
+    """Each layer's parameters in the order the layers run: the stacks (the
+    top-level groups of block leaves, each over a leading layer axis) in the
+    order the layout first names them, each layer by layer."""
+    stacks = dict.fromkeys(p.split("/")[0] for p in weights.layout(cfg) if "/" in p)
+    for stack in stacks:
+        tree = params[stack]
+        first = tree
+        while isinstance(first, dict):
+            first = next(iter(first.values()))
+        for layer in range(first.shape[0]):
+            yield _slice(tree, layer)
+
+
+def _slice(tree, layer: int):
+    if isinstance(tree, dict):
+        return {k: _slice(v, layer) for k, v in tree.items()}
+    return tree[layer]
 
 
 def loss(cfg: dict, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
          precision: str = "f32") -> torch.Tensor:
-    """Mean token cross-entropy of one node's batch (B, S)."""
-    h = params["embed"][tokens]
-    blocks = params["blocks"]
-    for layer in range(cfg["n_layers"]):
-        lp = {k: (v[layer] if not isinstance(v, dict) else {kk: vv[layer] for kk, vv in v.items()})
-              for k, v in blocks.items()}
-        if cfg["family"] == "ssm":
-            h = h + _mamba2(_rmsnorm(h, lp["ln"]), lp["mixer"], cfg, precision)
-        else:
-            h = h + _attention(_rmsnorm(h, lp["ln1"]), lp["attn"], cfg, precision)
-            h = h + _swiglu(_rmsnorm(h, lp["ln2"]), lp["ffn"], precision)
-    logits = _dense(_rmsnorm(h, params["final_ln"]), params["lm_head"], precision)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+    """Mean token cross-entropy of one node's batch (B, S), plus the layers'
+    loss terms."""
+    family = families.of(cfg)
+    h, aux = params["embed"][tokens], 0.0
+    for lp in _layers(cfg, params):
+        h, extra = family.block(h, lp, cfg, precision)
+        aux = aux + extra
+    logits = dense(rmsnorm(h, params["final_ln"]), params["lm_head"], precision)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1)) + aux

@@ -4,12 +4,13 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import time
 
 import pytest
 
 from bench import cells, run
-from bench.tests.tiny import ROOT, toy_root
+from bench.tests.tiny import CONFIGS, ROOT, TOY_LIMITS, toy_root
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -92,3 +93,28 @@ def test_files_added_in_a_copy_are_found(tmp_path):
     assert set(plain["metrics"]) == {"tokens_per_s", "setup_s"}   # no card: no peak
     with pytest.raises(KeyError):
         cells.find(root, "toy-dense.no-such-mix")
+
+
+def test_a_family_added_as_a_file_is_found(tmp_path):
+    """A model family, a configuration of it and a cell, added as files and
+    entries only: the family file, a copy of ``dense.py`` under another name,
+    is read from the copy of the benchmark, and the cell judges as the toy
+    dense cell it copies."""
+    root = toy_root(tmp_path, TOY_LIMITS)
+    shutil.copy(root / "bench" / "families" / "dense.py",
+                root / "bench" / "families" / "dense_copy.py")
+    cfg = {**CONFIGS["toy-dense"], "family": "dense_copy"}
+    (root / "bench" / "configs" / "toy-copy.json").write_text(json.dumps(cfg))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "toy-copy", "source": "a CPU test", "reduced": [],
+                            "file": "bench/configs/toy-copy.json", "why": "a CPU test"})
+    spec["workloads"].append({"name": "toy-copy.dcd-q4", "config": "toy-copy",
+                              "traffic": "toy-dcd-q4", "chips": 1, "why": "a CPU test"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    shutil.copy(root / "bench" / "limits" / "toy-dense.dcd-q4.json",
+                root / "bench" / "limits" / "toy-copy.dcd-q4.json")
+    got = [run.run(root, cell, 13, 0.2, trace=False, device="cpu", started=time.perf_counter())
+           for cell in ("toy-copy.dcd-q4", "toy-dense.dcd-q4")]
+    assert [r["correct"] for r in got] == [True, True]
+    assert got[0]["checks"] == got[1]["checks"]
+    assert cells.find(root, "toy-copy.dcd-q4").config["family"] == "dense_copy"

@@ -1,6 +1,6 @@
 """No module a benchmark run reaches imports JAX or the JAX package
 ``repro`` (top-level names compared whole: ``repro_torch`` is the port), and
-the reference imports nothing of the port."""
+the reference and the model families import nothing of the port."""
 from __future__ import annotations
 
 import ast
@@ -38,7 +38,12 @@ def test_no_run_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_port():
-    for p in _sources(ROOT / "bench" / "reference"):
+    """The reference and the model families' files, which it runs (not the
+    families' loader)."""
+    families = [p for p in _sources(ROOT / "bench" / "families") if p.name != "__init__.py"]
+    assert families
+    files = _sources(ROOT / "bench" / "reference") + families
+    for p in files:
         assert "repro_torch" not in _imported_tops(p), p
         assert _imported_tops(p) <= {"__future__", "math", "numpy", "torch", "bench"}, p
 

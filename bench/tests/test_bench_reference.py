@@ -14,14 +14,7 @@ from repro_torch.models.ssm import ssd_recurrent_ref
 
 from bench import cells, compare, faults, harness, ranks, run, weights
 from bench.reference import data, model, train, wire
-from bench.tests.tiny import CELLS, CONFIGS, RANK_CELLS, toy_root
-
-# the toy cells' own limits for a sound run: at these widths the program's
-# bf16 reads loss gaps up to 5e-5 and norm gaps up to 3e-3 against the
-# float32 reference (the real cells' limits are set from readings at their
-# own sizes on the card)
-TOY_LIMITS = {"token_mismatches": 0, "sent_bytes_gap": 0, "loss_gap": 1e-3,
-              "grad_norm_gap": 2e-2, "change_norm_gap": 2e-2}
+from bench.tests.tiny import CELLS, CONFIGS, RANK_CELLS, TOY_LIMITS, toy_root
 
 
 @pytest.fixture(scope="module")

@@ -2,10 +2,10 @@
 
 * :func:`model_flops_per_token`: the forward and backward operations of one
   token, counted once (no recomputation): ``6 x`` the parameters that enter
-  a matrix product, plus, per layer, attention's two products over the full
-  ``S x S`` square (``12 S d_attn``) or the SSD scan's chunk products
-  (``3 x (2 L N H + 2 L H P + 4 H P N)`` for chunk ``L``, state ``N``,
-  ``H`` heads of ``P``).
+  a matrix product, plus each layer's mixer operations beyond them, both as
+  the configuration's family counts them (``bench/families/<family>.py``:
+  attention's two products over the full ``S x S`` square, the SSD scan's
+  chunk products).
 * :func:`wire_kernel_work`: the bytes the wire kernels of one step must
   read and write (each input byte read once, each output byte written
   once), whichever kernel does the work: an encode reads the float32 leaf
@@ -19,6 +19,8 @@
 from __future__ import annotations
 
 import math
+
+from bench import families
 
 PEAKS = {
     "bf16_flops": 989e12,
@@ -44,28 +46,11 @@ def matmul_params(cfg: dict) -> int:
     """Parameters of one node that enter a matrix product (the LM head
     included, the embedding lookup not)."""
     d, vp = cfg["d_model"], -(-cfg["vocab"] // 256) * 256
-    if cfg["family"] == "ssm":
-        s = cfg["ssm"]
-        per_layer = d * (2 * s["d_inner"] + 2 * s["n_groups"] * s["d_state"] + s["n_heads"]) \
-            + s["d_inner"] * d
-    else:
-        hd = d // cfg["n_heads"]
-        per_layer = d * (cfg["n_heads"] + 2 * cfg["n_kv_heads"]) * hd \
-            + cfg["n_heads"] * hd * d + 3 * d * cfg["d_ff"]
-    return cfg["n_layers"] * per_layer + d * vp
+    return sum(families.of(cfg).matmul_params_per_layer(cfg)) + d * vp
 
 
 def model_flops_per_token(cfg: dict, seq_len: int) -> float:
-    flops = 6.0 * matmul_params(cfg)
-    if cfg["family"] == "ssm":
-        s = cfg["ssm"]
-        chunk, n, h = s["chunk"], s["d_state"], s["n_heads"]
-        p = s["d_inner"] // h
-        flops += cfg["n_layers"] * 3.0 * (2 * chunk * n * h + 2 * chunk * h * p + 4 * h * p * n)
-    else:
-        flops += cfg["n_layers"] * 12.0 * seq_len * cfg["n_heads"] * (cfg["d_model"]
-                                                                       // cfg["n_heads"])
-    return flops
+    return 6.0 * matmul_params(cfg) + sum(families.of(cfg).mixer_flops_per_token(cfg, seq_len))
 
 
 def _fold(shape, wire: dict) -> tuple:

@@ -17,13 +17,28 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class MoESpec:
+    """``n_routed`` is the router's width.  ``capacity_factor`` None routes
+    dropless (every chosen expert computes its rows); a number bounds each
+    expert's rows per token group and drops the rest.  Dropless, this
+    device may hold a share of the experts, ``n_held`` of them from
+    ``first_held`` (None: all): the router still scores all ``n_routed``
+    and only the held experts' part of the output is computed.
+    ``norm_topk`` divides the chosen weights by their sum."""
     n_routed: int
     n_shared: int
     top_k: int
     d_expert: int
-    capacity_factor: float = 1.25
+    capacity_factor: Optional[float] = 1.25
     dense_layers: Tuple[int, ...] = (0,)   # layers with a dense FFN instead of MoE
     d_ff_dense: int = 0                    # width of those dense FFNs
+    norm_topk: bool = True
+    first_held: int = 0
+    n_held: Optional[int] = None
+
+    @property
+    def held(self) -> int:
+        """Experts held here."""
+        return self.n_routed if self.n_held is None else self.n_held
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +52,16 @@ class SSMSpec:
 
 @dataclasses.dataclass(frozen=True)
 class MLASpec:
+    """``latent_norm``: an RMSNorm (eps 1e-6, a gain leaf ``kv_norm``) on the
+    compressed latent ``c_kv``.  ``yarn``: YaRN rope scaling as DeepSeek-V2
+    publishes it, ``(factor, original_max_position_embeddings, beta_fast,
+    beta_slow, mscale, mscale_all_dim)`` (empty: plain rope)."""
     kv_lora: int = 512
     qk_nope: int = 128
     qk_rope: int = 64
     v_head: int = 128
+    latent_norm: bool = False
+    yarn: Tuple[float, ...] = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +129,14 @@ class ArchConfig:
         if self.moe:
             changes["moe"] = dataclasses.replace(
                 self.moe, n_routed=4, n_shared=min(self.moe.n_shared, 1),
-                top_k=2, d_expert=64, d_ff_dense=min(self.moe.d_ff_dense, 256) or 256)
+                top_k=2, d_expert=64, d_ff_dense=min(self.moe.d_ff_dense, 256) or 256,
+                first_held=0, n_held=None if self.moe.n_held is None else 2)
         if self.ssm:
             changes["ssm"] = dataclasses.replace(
                 self.ssm, d_inner=2 * d, d_state=16, n_heads=4, chunk=8)
         if self.mla:
-            changes["mla"] = MLASpec(kv_lora=32, qk_nope=16, qk_rope=8, v_head=16)
+            changes["mla"] = dataclasses.replace(self.mla, kv_lora=32, qk_nope=16, qk_rope=8,
+                                                 v_head=16)
         if self.frontend:
             # audio frames feed the encoder directly => dim must track d_model
             dim = d if self.frontend.kind == "audio" else 64

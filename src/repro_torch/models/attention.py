@@ -26,12 +26,23 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.layers import COMPUTE_DTYPE, Params, apply_rope, dense, dense_init, einsum
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
+    Params,
+    apply_rope,
+    dense,
+    dense_init,
+    einsum,
+    rmsnorm,
+    rmsnorm_init,
+    yarn_softmax_scale,
+)
+from repro_torch.trace import span
 
 NEG_INF = -1e9
 
@@ -118,10 +129,12 @@ def _chunk_step(m, l, acc, qr, kj, vj, kpos, qpos, S: int, window: Optional[int]
 
 
 def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: Optional[int] = None, chunk: int = FLASH_CHUNK) -> torch.Tensor:
+                  window: Optional[int] = None, chunk: int = FLASH_CHUNK,
+                  scale: Optional[float] = None) -> torch.Tensor:
     """Causal self-attention with an online softmax over KV chunks.
 
-    q (B,S,H,D), k/v (B,S,KV,D), S == T.  Carries (running max, running
+    q (B,S,H,D), k/v (B,S,KV,D), S == T; scores scaled by ``scale``
+    (``1/sqrt(D)`` when None).  Carries (running max, running
     denominator, weighted accumulator) across chunks; each chunk is masked
     causally (and by the sliding window if set).  Under autograd each chunk
     runs under ``torch.utils.checkpoint``, so the backward recomputes the
@@ -132,7 +145,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV = k.shape[2]
     Dv = v.shape[-1]
     G = H // KV
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qr = q.reshape(B, S, KV, G, D)
     pad = (-S) % chunk
     if pad:
@@ -216,8 +229,9 @@ def gqa_decode(x: torch.Tensor, cache: KVCache, p: Params, *, n_heads: int, n_kv
 # ------------------------------------------------------------------ MLA (DeepSeek-V2)
 
 def mla_init(gen: torch.Generator, d: int, n_heads: int, *, kv_lora: int, qk_nope: int,
-             qk_rope: int, v_head: int, device, lead: tuple = ()) -> Params:
-    return {
+             qk_rope: int, v_head: int, device, lead: tuple = (),
+             latent_norm: bool = False) -> Params:
+    p = {
         "wq": dense_init(gen, d, n_heads * (qk_nope + qk_rope), device=device, lead=lead),
         "wdkv": dense_init(gen, d, kv_lora, device=device, lead=lead),
         "wuk": dense_init(gen, kv_lora, n_heads * qk_nope, device=device, lead=lead),
@@ -225,29 +239,45 @@ def mla_init(gen: torch.Generator, d: int, n_heads: int, *, kv_lora: int, qk_nop
         "wkr": dense_init(gen, d, qk_rope, device=device, lead=lead),
         "wo": dense_init(gen, n_heads * v_head, d, device=device, lead=lead),
     }
+    if latent_norm:
+        p["kv_norm"] = rmsnorm_init(kv_lora, device=device, lead=lead)
+    return p
+
+
+def _latent(x: torch.Tensor, p: Params, latent_norm: bool) -> torch.Tensor:
+    """The compressed latent ``c_kv = x W_dkv``, RMS-normed with ``latent_norm``."""
+    c_kv = dense(x, p["wdkv"])
+    return rmsnorm(c_kv, p["kv_norm"]) if latent_norm else c_kv
 
 
 def mla_forward(x: torch.Tensor, p: Params, *, n_heads: int, kv_lora: int, qk_nope: int,
-                qk_rope: int, v_head: int, theta: float) -> torch.Tensor:
-    """Training/prefill MLA (uncompressed path)."""
+                qk_rope: int, v_head: int, theta: float, latent_norm: bool = False,
+                yarn: Tuple[float, ...] = ()) -> torch.Tensor:
+    """Training/prefill MLA (uncompressed path), inside the span ``model.mla``."""
+    with span("model.mla"):
+        return _mla_forward(x, p, n_heads=n_heads, qk_nope=qk_nope, qk_rope=qk_rope,
+                            v_head=v_head, theta=theta, latent_norm=latent_norm, yarn=yarn)
+
+
+def _mla_forward(x, p, *, n_heads, qk_nope, qk_rope, v_head, theta, latent_norm, yarn):
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)
     q = dense(x, p["wq"]).reshape(B, S, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
-    q_rope = apply_rope(q_rope, pos, theta)
-    c_kv = dense(x, p["wdkv"])                                       # (B,S,R)
+    q_rope = apply_rope(q_rope, pos, theta, yarn)
+    c_kv = _latent(x, p, latent_norm)                                # (B,S,R)
     k_nope = dense(c_kv, p["wuk"]).reshape(B, S, n_heads, qk_nope)
     v = dense(c_kv, p["wuv"]).reshape(B, S, n_heads, v_head)
-    k_rope = apply_rope(dense(x, p["wkr"])[:, :, None, :], pos, theta)  # (B,S,1,Dr)
+    k_rope = apply_rope(dense(x, p["wkr"])[:, :, None, :], pos, theta, yarn)  # (B,S,1,Dr)
+    scale = yarn_softmax_scale(qk_nope + qk_rope, yarn)
 
     if S >= FLASH_THRESHOLD:
         # chunked path: fold the shared rope key into per-head effective K
         q_eff = torch.cat([q_nope, q_rope], dim=-1)
         k_eff = torch.cat([k_nope, k_rope.expand(B, S, n_heads, qk_rope)], dim=-1)
-        out = _sdpa_chunked(q_eff, k_eff, v)
+        out = _sdpa_chunked(q_eff, k_eff, v, scale=scale)
         return dense(out.reshape(B, S, -1), p["wo"])
 
-    scale = 1.0 / math.sqrt(qk_nope + qk_rope)
     s1 = torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
     s2 = torch.einsum("bshd,btxd->bhst", q_rope, k_rope)
     scores = (s1 + s2).to(torch.float32) * scale
@@ -268,7 +298,8 @@ def mla_init_cache(B: int, capacity: int, kv_lora: int, qk_rope: int,
 
 
 def mla_decode(x: torch.Tensor, cache: MLACache, p: Params, *, n_heads: int, kv_lora: int,
-               qk_nope: int, qk_rope: int, v_head: int, theta: float) -> tuple:
+               qk_nope: int, qk_rope: int, v_head: int, theta: float,
+               latent_norm: bool = False, yarn: Tuple[float, ...] = ()) -> tuple:
     """Absorbed-matrix decode: scores and values are computed in the
     ``kv_lora``-dim latent space, so a step costs O(S * (kv_lora + qk_rope))
     a head.  Writes one layer's latent cache (B, C, R) and rope keys (B, C,
@@ -280,10 +311,10 @@ def mla_decode(x: torch.Tensor, cache: MLACache, p: Params, *, n_heads: int, kv_
     tt = torch.tensor([t], device=x.device)
     q = dense(x, p["wq"]).reshape(B, 1, n_heads, qk_nope + qk_rope)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
-    q_rope = apply_rope(q_rope, tt, theta)
+    q_rope = apply_rope(q_rope, tt, theta, yarn)
 
-    c_new = dense(x, p["wdkv"])                                      # (B,1,R)
-    kr_new = apply_rope(dense(x, p["wkr"])[:, :, None, :], tt, theta)[:, :, 0]
+    c_new = _latent(x, p, latent_norm)                               # (B,1,R)
+    kr_new = apply_rope(dense(x, p["wkr"])[:, :, None, :], tt, theta, yarn)[:, :, 0]
     slot = min(t, c_kv.shape[1] - 1)
     c_kv[:, slot] = c_new[:, 0].to(c_kv.dtype)
     k_rope[:, slot] = kr_new[:, 0].to(k_rope.dtype)
@@ -291,7 +322,7 @@ def mla_decode(x: torch.Tensor, cache: MLACache, p: Params, *, n_heads: int, kv_
     # absorb W_uk into q: q_lat (B,H,R)
     wuk = p["wuk"].reshape(kv_lora, n_heads, qk_nope).to(x.dtype)
     q_lat = einsum("bxhd,rhd->bhr", q_nope, wuk)
-    scale = 1.0 / math.sqrt(qk_nope + qk_rope)
+    scale = yarn_softmax_scale(qk_nope + qk_rope, yarn)
     s1 = einsum("bhr,btr->bht", q_lat, c_kv)
     s2 = einsum("bxhd,btd->bht", q_rope, k_rope)
     scores = (s1 + s2).to(torch.float32) * scale

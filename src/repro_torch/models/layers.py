@@ -8,7 +8,7 @@ cross-entropy work in float32, as the JAX versions do.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -119,13 +119,61 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, H, D); positions broadcastable to (..., S)."""
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's attention factor, ``0.1 mscale ln(scale) + 1`` (1 at no scaling)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_range(head_dim: int, theta: float, yarn: Tuple[float, ...]) -> Tuple[int, int]:
+    """The frequency indices ``(low, high)`` between which YaRN's ramp runs:
+    the rotary dims that turn ``beta_fast`` and ``beta_slow`` times over the
+    original context, ``corr(r) = D ln(L / (2 pi r)) / (2 ln theta)``."""
+    _, original, beta_fast, beta_slow = yarn[:4]
+
+    def corr(rotations):
+        return head_dim * math.log(original / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    return max(math.floor(corr(beta_fast)), 0), min(math.ceil(corr(beta_slow)), head_dim - 1)
+
+
+def yarn_freqs(head_dim: int, theta: float, yarn: Tuple[float, ...], device) -> torch.Tensor:
+    """DeepSeek-V2's YaRN frequencies: ``f_e = theta^(-2i/D)`` extrapolated
+    below ``low``, ``f_e / factor`` interpolated above ``high``, a linear ramp
+    between."""
+    factor = yarn[0]
+    low, high = yarn_range(head_dim, theta, yarn)
+    base = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim)
+    f_extra, f_inter = 1.0 / base, 1.0 / (factor * base)
+    i = torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+    ramp = torch.clamp((i - low) / (high - low if high > low else 0.001), 0, 1)
+    return f_inter * ramp + f_extra * (1 - ramp)
+
+
+def yarn_softmax_scale(head_dim: int, yarn: Tuple[float, ...]) -> float:
+    """Attention's softmax scale: ``1/sqrt(D)``, times ``mscale(factor,
+    mscale_all_dim)^2`` under YaRN."""
+    scale = 1.0 / math.sqrt(head_dim)
+    if yarn and yarn[5]:
+        scale *= yarn_mscale(yarn[0], yarn[5]) ** 2
+    return scale
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn: Tuple[float, ...] = ()) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S).  With ``yarn``
+    the frequencies are :func:`yarn_freqs` and cos and sin are scaled by
+    ``mscale(factor, mscale) / mscale(factor, mscale_all_dim)``."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                              # (D/2,)
+    freqs = yarn_freqs(d, theta, yarn, x.device) if yarn \
+        else rope_freqs(d, theta, x.device)                             # (D/2,)
     angles = positions[..., None].to(torch.float32) * freqs             # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                               # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
+    if yarn:
+        factor, _, _, _, mscale, mscale_all_dim = yarn
+        amp = yarn_mscale(factor, mscale) / yarn_mscale(factor, mscale_all_dim)
+        if amp != 1.0:
+            cos, sin = cos * amp, sin * amp
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -71,7 +71,7 @@ def _attn_init(cfg: ArchConfig, gen, *, device, lead: tuple) -> Params:
         m = cfg.mla
         return attn.mla_init(gen, cfg.d_model, cfg.n_heads, kv_lora=m.kv_lora,
                              qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
-                             device=device, lead=lead)
+                             device=device, lead=lead, latent_norm=m.latent_norm)
     return attn.gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                          device=device, lead=lead)
 
@@ -81,7 +81,7 @@ def _attn_fwd(cfg: ArchConfig, x, p) -> torch.Tensor:
         m = cfg.mla
         return attn.mla_forward(x, p, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
                                 qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
-                                theta=cfg.rope_theta)
+                                theta=cfg.rope_theta, latent_norm=m.latent_norm, yarn=m.yarn)
     return attn.gqa_forward(x, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                             head_dim=cfg.hd, theta=cfg.rope_theta)
 
@@ -101,7 +101,7 @@ def _block_init(cfg: ArchConfig, gen, kind: str, *, device, lead: tuple) -> Para
     if kind == "attn_moe":
         m = cfg.moe
         p["ffn"] = moe_lib.moe_init(gen, d, m.d_expert, m.n_routed, m.n_shared,
-                                    device=device, lead=lead)
+                                    device=device, lead=lead, n_held=m.n_held)
     else:
         d_ff = cfg.moe.d_ff_dense if (cfg.moe and kind == "attn_dense_moe0") else cfg.d_ff
         p["ffn"] = _mlp_init(cfg, gen, d, d_ff, device=device, lead=lead)
@@ -115,6 +115,13 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
 
 def _moe(cfg: ArchConfig, x, p):
     m = cfg.moe
+    if m.capacity_factor is None:
+        return moe_lib.moe_dropless(x, p, n_routed=m.n_routed, n_shared=m.n_shared,
+                                    top_k=m.top_k, norm_topk=m.norm_topk,
+                                    first_held=m.first_held)
+    if m.held != m.n_routed or not m.norm_topk:
+        raise ValueError("a share of the experts and unnormalized weights route dropless: "
+                         "capacity_factor None")
     return moe_lib.moe_forward(x, p, n_routed=m.n_routed, n_shared=m.n_shared,
                                top_k=m.top_k, capacity_factor=m.capacity_factor)
 
@@ -222,9 +229,11 @@ def _n_stacked(tree: Any, axis: int = 0) -> int:
 def _cast_weights(lp: Any) -> Any:
     """Cast a layer's float32 leaves of rank >= 2 to bf16 (numerics
     unchanged: ``dense`` casts at use anyway).  1-D parameters (norm gains,
-    SSM decay vectors) stay float32; the SSM's ``conv_w`` is cast."""
+    SSM decay vectors) stay float32; the SSM's ``conv_w`` is cast.  The MoE
+    router stays float32 too: the capacity path casts it at use, the
+    dropless path takes its logits in float32."""
     if isinstance(lp, dict):
-        return {k: _cast_weights(v) for k, v in lp.items()}
+        return {k: v if k == "router" else _cast_weights(v) for k, v in lp.items()}
     return lp.to(COMPUTE_DTYPE) if (lp.dim() >= 2 and lp.dtype == torch.float32) else lp
 
 
@@ -239,18 +248,29 @@ def run_layer(fn, h, lp, remat: bool):
     return torch.utils.checkpoint.checkpoint(fn, h, lp, use_reentrant=False)
 
 
+def _add_aux(total: Dict, aux: Dict) -> Dict:
+    """The aux terms of the layers so far and one more layer's: sums, but
+    the largest ``moe_max_load``."""
+    out = dict(total)
+    for k, v in aux.items():
+        out[k] = v if k not in total else (
+            torch.maximum(total[k], v) if k == "moe_max_load" else total[k] + v)
+    return out
+
+
 def _run_blocks(cfg: ArchConfig, h, stacked: Params, kind: str, remat: bool = False):
-    """Walk a stack of layers; returns h and the summed aux losses.  Each
-    layer casts its weights inside the recomputed region, as JAX's body."""
-    lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
+    """Walk a stack of layers; returns h and the aux terms over its layers
+    (:func:`_add_aux`).  Each layer casts its weights inside the recomputed
+    region, as JAX's body."""
+    total = _zero_aux(h.device)
 
     def block(hh, lp):
         return _block_fwd(cfg, hh, _cast_weights(lp), kind)
 
     for lp in unstack(stacked):
         h, aux = run_layer(block, h, lp, remat)
-        lb, zl = lb + aux["lb_loss"], zl + aux["z_loss"]
-    return h, lb, zl
+        total = _add_aux(total, aux)
+    return h, total
 
 
 def _shared_attn_fwd(cfg: ArchConfig, h, sa: Params):
@@ -271,24 +291,24 @@ def lm_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         if "proj" in params:
             e = dense(gelu(dense(e, params["proj"]["w1"])), params["proj"]["w2"])
         h = torch.cat([e, h], dim=1)
-    lb = zl = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = _zero_aux(h.device)
     if cfg.hybrid_period:
         lay = HybridLayout.of(cfg)
         sa = _cast_weights(params["shared_attn"])
         for period in unstack(params["pm"]):
-            h, l2, z2 = _run_blocks(cfg, h, period, "ssm", remat)
-            lb, zl = lb + l2, zl + z2
+            h, a2 = _run_blocks(cfg, h, period, "ssm", remat)
+            aux = _add_aux(aux, a2)
             h = _shared_attn_fwd(cfg, h, sa)
         if lay.tail:
-            h, l2, z2 = _run_blocks(cfg, h, params["tail"], "ssm", remat)
-            lb, zl = lb + l2, zl + z2
+            h, a2 = _run_blocks(cfg, h, params["tail"], "ssm", remat)
+            aux = _add_aux(aux, a2)
     else:
         if "blocks0" in params:
             # the dense first layers' aux (zeros) is not added, as in JAX
-            h, _, _ = _run_blocks(cfg, h, params["blocks0"], "attn_dense_moe0")
-        h, lb, zl = _run_blocks(cfg, h, params["blocks"], _layer_kind(cfg), remat)
+            h, _ = _run_blocks(cfg, h, params["blocks0"], "attn_dense_moe0")
+        h, aux = _run_blocks(cfg, h, params["blocks"], _layer_kind(cfg), remat)
     h = _norm(cfg, h, params["final_ln"])
-    return h, {"lb_loss": lb, "z_loss": zl}
+    return h, aux
 
 
 def lm_loss(cfg: ArchConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -357,7 +377,7 @@ def _attn_decode(cfg: ArchConfig, x, cache, p):
         m = cfg.mla
         return attn.mla_decode(x, cache, p, n_heads=cfg.n_heads, kv_lora=m.kv_lora,
                                qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
-                               theta=cfg.rope_theta)
+                               theta=cfg.rope_theta, latent_norm=m.latent_norm, yarn=m.yarn)
     return attn.gqa_decode(x, cache, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                            head_dim=cfg.hd, theta=cfg.rope_theta)
 

@@ -1,8 +1,10 @@
 """Named spans inside the training step, on the profiler's clock.
 
 ``span(name)`` marks where a layer of the step does its work: the data
-pipeline, the model's forward and backward, the optimizer, the gossip
-rounds (mix, encode, decode), each transport call and the step's metrics.
+pipeline, the model's forward and backward, inside the forward latent
+attention (MLA) and the dropless MoE's routing and held experts, the
+optimizer, the gossip rounds (mix, encode, decode), each transport call and
+the step's metrics.
 Tracing is off by default, and then a span costs one read of a module flag
 and returns a shared no-op context.  With ``enable(True)`` a span:
 
@@ -29,7 +31,8 @@ import torch
 
 TRANSPORT_LABELS = ("wire", "dense", "resync", "allreduce", "metric", "checkpoint")
 NAMES = ("data.batch", "step", "model.forward", "model.backward", "optim.update",
-         "gossip.mix", "gossip.encode", "gossip.decode", "step.metrics") + tuple(
+         "gossip.mix", "gossip.encode", "gossip.decode", "step.metrics", "model.mla",
+         "model.moe.route", "model.moe.experts") + tuple(
     f"transport.{label}" for label in TRANSPORT_LABELS)
 
 Span = Tuple[str, Optional[int], Optional[int], int, int]

@@ -2,7 +2,9 @@
 K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b, and the bf16-accumulator
 variants of K2, K5b, K6c and K7b, and the data layer's Markov walk,
 against their plain versions; the dryrun's executed smoke on the card; the
-step analyzer's grid on the card (``repro_torch.analysis.step_checks``).
+step analyzer's grid on the card (``repro_torch.analysis.step_checks``); a
+step of the small DeepSeek-V2-Lite cell (latent attention, dropless expert
+share) with no host read.
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -962,3 +964,26 @@ def test_markov_walk_launches_equal_calls_in_a_batch(cuda):
     assert torch.equal(one["tokens"], stacked["tokens"][3])
     assert torch.equal(stacked["labels"][..., :-1], stacked["tokens"][..., 1:])
 
+
+
+# ------------------------------------------- latent attention and dropless MoE
+
+def test_mla_moe_step_on_card_reads_nothing_on_the_host(cuda, tmp_path):
+    """One DCD ``quant:4`` step of the small DeepSeek-V2-Lite cell
+    (``test_torch_mla_moe.SMALL``: latent norm, YaRN, 8 of 16 experts held,
+    dropless) as the benchmark's harness builds it, under ``StepWatch``
+    after a warm-up step: no host read of a card tensor and no float64, in
+    the expert layer's grouped products or anywhere else in the step."""
+    from bench import cells, harness
+    from test_torch_mla_moe import SMALL_CELL, small_cell_root
+
+    cell = cells.find(small_cell_root(tmp_path), SMALL_CELL)
+    prog = harness.Program(cell, 2 ** 31 + 3, cuda)
+    prog.step(prog.batch())
+    batch = prog.batch()
+    watch = sc.StepWatch(cuda)
+    with watch:
+        prog.state, met = prog.step_fn(prog.state, batch)
+    torch.cuda.synchronize()
+    assert watch.host_reads == [] and watch.f64_ops == []
+    assert math.isfinite(float(met["loss"])) and float(met["moe_held_rows"]) > 0

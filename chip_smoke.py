@@ -60,7 +60,11 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    50,280 x 1,024) and a rank's 4 rows, three seeds each; timed beside the
    eager walk, one CTA a row, its fixed cost and its lower bound
    (``markov_bound``: the operations a candidate needs, each unit at its
-   peak rate).
+   peak rate).  The optim layer's AdamW update (``phase_kernels_adamw``)
+   against the eager body, m, v and the update bit for bit, at granite's
+   largest stacked leaf (f32 and bf16 g and p) and a ragged one; timed
+   beside its bound (28 B an element), the eager body and
+   ``torch._fused_adamw_``.
    ``--only kernels_sparse,kernels_lowrank`` (any of ``KERNEL_PHASES``)
    builds and runs just those phases and prints no result: to time a
    parent's kernels against a change's, one process a tree.
@@ -78,8 +82,10 @@ Phases, in one process; any failure exits non-zero and nothing is caught:
    33 K7b for DCD over ``lowrank``, one per matrix leaf and 1 + 2 shifts
    per matrix leaf; under ``adaptive`` 1 K1 + 3 K2 for ``embed`` and 8 K7a
    + 24 K7b for the other matrices) and every other kernel none, but the
-   data's Markov walk, one launch a step (``WALK_PER_STEP``), as many calls
-   as launches, here and in every run of the phases below.  The
+   data's Markov walk, one launch a step (``WALK_PER_STEP``), and AdamW's
+   update, one launch a leaf a step (``ADAMW_PER_STEP``, in the runs of
+   ``run_training``), as many calls as launches, here and in every run of
+   the phases below.  The
    shared-state invariants ``rep{s} == roll(X, s)`` (DCD),
    ``tilde{s} == roll(tilde_self, s)`` (ECD) and ``hat{s} ==
    roll(hat_self, s)`` (CHOCO) are checked, and every non-zero warm factor
@@ -333,9 +339,15 @@ KERNELS = {
     # the data layer's Markov walk; the JAX package samples its walk with
     # threefry keys and no TPU kernel
     "markov_walk": ("src/repro_torch/kernels/csrc/markov.cu", "none"),
+    # the optim layer's AdamW update; the JAX package's AdamW is jnp that XLA
+    # fuses
+    "adamw_update": ("src/repro_torch/kernels/csrc/adamw.cu", "none"),
 }
 # the data's Markov walk takes its kernel once a batch, so once a training step
 WALK_PER_STEP = {"markov_walk": 1}
+# AdamW, ``run_training``'s optimizer, takes its kernel once a leaf a step:
+# the 12 leaves of granite-3-2b at one layer
+ADAMW_PER_STEP = {"adamw_update": 12}
 # (aw, w) of the bf16-accumulator checks: DCD's and CHOCO's 1.0, and an
 # ECD-like decay
 BF16_WEIGHTS = ((1.0, 1.0), (0.75, -0.5))
@@ -344,7 +356,8 @@ KERNEL_SYMBOLS = ("quantize_pack_kernel", "unpack_dequant_axpy_kernel", "quantiz
                   "dequantize_kernel", "unpack_dequant_kernel", "sign_pack_kernel",
                   "unpack_sign_axpy_kernel", "sparse_select_pack_",
                   "sparse_unpack_scatter_kernel", "sparse_scatter_axpy_",
-                  "lowrank_project_kernel", "lowrank_axpy_", "markov_walk_kernel")
+                  "lowrank_project_kernel", "lowrank_axpy_", "markov_walk_kernel",
+                  "adamw_update_kernel")
 
 
 def max_abs_err(a, b) -> float:
@@ -1061,6 +1074,64 @@ def phase_kernels_markov(torch, mk, ref, rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# (label, shape) of the AdamW leaves: granite's largest stacked leaf (embed,
+# and lm_head: 8 nodes x 49,155 x 2,048) and a ragged one
+ADAMW_SHAPES = (("embed", (8, 49155, 2048)), ("ragged", (8, 1001)))
+# the cells' AdamW, lr 3e-3 past the warm-up
+ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+ADAMW_OPS = 15                  # f32 operations an element (products, sums, sqrt, division)
+
+
+def phase_kernels_adamw(torch, ak, ref, rec: dict) -> None:
+    """The optim layer's AdamW update against its plain version (the eager
+    body, ``ref.adamw_update_ref``) on the card at ``ADAMW_SHAPES``: ``m``,
+    ``v`` and the update bit for bit, f32 leaves at t 1 with lr 3e-3 and at
+    t 300 with lr 0.0, and bf16 ``g`` and ``p`` at the large leaf; ``g``
+    holds NaN, +-inf and -0.0.  At the large leaf, f32, timed beside its
+    bound (28 B an element), the plain version and the library's fused
+    AdamW (``torch._fused_adamw_``, the same bytes; timed only, the port
+    never calls it)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    for label, shape in ADAMW_SHAPES:
+        g = torch.randn(shape, generator=gen, device=dev).mul_(1e-2)
+        g.view(-1)[:4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0])
+        p = torch.randn(shape, generator=gen, device=dev)
+        m0 = torch.randn(shape, generator=gen, device=dev).mul_(1e-3)
+        v0 = torch.rand(shape, generator=gen, device=dev).mul_(1e-4)
+        for dtype in (torch.float32, torch.bfloat16)[:2 if label == "embed" else 1]:
+            gd, pd = g.to(dtype), p.to(dtype)
+            for t, lr in ((1, 3e-3), (300, 0.0)):
+                m, v, mr, vr = m0.clone(), v0.clone(), m0.clone(), v0.clone()
+                got = ak.adamw_update(gd, m, v, pd, lr=lr, t=t, **ADAMW_KW)
+                want = ref.adamw_update_ref(gd, mr, vr, pd, lr=lr, t=t, **ADAMW_KW)
+                torch.cuda.synchronize()
+                check(ref, rec, "adamw_update", label, (got, m, v), (want, mr, vr),
+                      f"{str(dtype)[6:]} g and p, t {t}, lr {lr}")
+                del got, want, m, v, mr, vr
+            del gd, pd
+        if label != "embed":
+            continue
+        n = g.numel()
+        m, v = m0.clone(), v0.clone()
+        kw = dict(lr=3e-3, t=1, **ADAMW_KW)
+        ms = time_ms(torch, lambda: ak.adamw_update(g, m, v, p, **kw), 10)
+        plain_ms = time_ms(torch, lambda: ref.adamw_update_ref(g, m, v, p, **kw), 3)
+        steps = [torch.ones((), device=dev)]
+        lib_ms = time_ms(torch, lambda: torch._fused_adamw_(
+            [p], [g], [m], [v], [], steps, lr=3e-3, beta1=0.9, beta2=0.95, weight_decay=0.01,
+            eps=1e-8, amsgrad=False, maximize=False), 10)
+        lower = bound(28 * n, ADAMW_OPS * n)
+        rec["adamw_update"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound=lower)
+        log(f"time adamw_update {label} {shape}: kernel {ms:.4f} ms, bound {lower[0]:.4f} ms "
+            f"({lower[1]}, {lower[0] / ms:.1%} of it), plain {plain_ms:.4f} ms, library "
+            f"torch._fused_adamw_ {lib_ms:.4f} ms")
+        del m, v, steps
+    del g, p, m0, v0
+    torch.cuda.empty_cache()
+
+
 def max_shift_residual(torch, tree_leaves, base, others: dict) -> float:
     """max |roll(base, s) - others[s]| over every leaf and shift."""
     worst = 0.0
@@ -1179,7 +1250,8 @@ def phase_train(torch, algo: str, wire: str, steps: int, per_step: dict, q) -> d
     assert all(math.isfinite(l) for l in hist["losses"]), hist["losses"]
     assert all(math.isfinite(c) for c in hist["consensus"]), hist["consensus"]
     assert n_leaves == 12, n_leaves
-    want = {name: {**WALK_PER_STEP, **per_step}.get(name, 0) * steps for name in counts}
+    want = {name: {**WALK_PER_STEP, **ADAMW_PER_STEP, **per_step}.get(name, 0) * steps
+            for name in counts}
     assert counts == want, (counts, want)
     if algo in INVARIANTS:
         base_key, prefix = INVARIANTS[algo]
@@ -1350,7 +1422,8 @@ def phase_plan_run(torch, q, label: str, fields: dict, steps: int, launches: dic
                 f"{dense if tc.algo == 'dpsgd' else 0} B of params a roll, "
                 f"{rolls if tc.algo == 'dpsgd' else 0} rolls a step")
     assert all(math.isfinite(v) for v in hist["losses"] + hist["consensus"]), hist
-    want = {name: launches.get(name, 0) + WALK_PER_STEP.get(name, 0) * steps for name in counts}
+    want = {name: launches.get(name, 0) + {**WALK_PER_STEP, **ADAMW_PER_STEP}.get(name, 0) * steps
+            for name in counts}
     assert counts == want, (counts, want)
     last = dataclasses.replace(tc, topology=phases[-1][2])
     never, fresh, row_sum, n_dropped = drop_history(last, steps, start=phases[-1][0])
@@ -1434,6 +1507,7 @@ def phase_checkpoint(torch, q) -> dict:
     assert counts["quantize_pack_2d"] == 6 * n_leaves, counts
     assert counts["unpack_dequant_axpy_2d"] == 18 * n_leaves, counts
     assert counts["markov_walk"] == 6, counts                 # 4 steps, then 2 resumed
+    assert counts["adamw_update"] == 6 * n_leaves, counts
     shutil.rmtree(root, ignore_errors=True)
     return counts
 
@@ -2094,7 +2168,7 @@ def phase_ranks(torch, q, cfg=None, device="cuda") -> dict:
                 f"peak_memory_allocated={r['peak']} B launches "
                 f"{ {k: v for k, v in r['counts'].items() if v} }")
             assert all(math.isfinite(v) for v in r["losses"]), r["losses"]
-            want = {name: {**WALK_PER_STEP, **per_step}.get(name, 0) * steps
+            want = {name: {**WALK_PER_STEP, **ADAMW_PER_STEP, **per_step}.get(name, 0) * steps
                     for name in r["counts"]}
             assert r["counts"] == want, (rank, r["counts"], want)
             for name, c in r["counts"].items():
@@ -2513,7 +2587,8 @@ def phase_train_families(torch, q, arch: str, n_layers: int, n_nodes: int, seq_l
     sends = sum(wf._kernel_ok(wf._block_for(l.shape[-1])) for l in leaves)
     want = {name: 0 for name in counts}
     want.update(quantize_2d=sends * steps, dequantize_2d=len(leaves) * (1 + len(shifts)) * steps,
-                markov_walk=WALK_PER_STEP["markov_walk"] * steps)
+                markov_walk=WALK_PER_STEP["markov_walk"] * steps,
+                adamw_update=len(leaves) * steps)
     assert counts == want, (counts, want)
     resid = max_shift_residual(torch, tree_leaves, state.params,
                                {s: state.aux[f"rep{s:+d}"] for s in shifts})
@@ -2786,7 +2861,8 @@ def phase_dryrun_plan(torch, q) -> dict:
 KERNEL_PHASES = {"kernels": phase_kernels, "kernels_sign": phase_kernels_sign,
                  "kernels_sparse": phase_kernels_sparse, "kernels_decode": phase_kernels_decode,
                  "kernels_sparse_decode": phase_kernels_sparse_decode,
-                 "kernels_lowrank": phase_kernels_lowrank, "kernels_markov": phase_kernels_markov}
+                 "kernels_lowrank": phase_kernels_lowrank, "kernels_markov": phase_kernels_markov,
+                 "kernels_adamw": phase_kernels_adamw}
 # the path phases ``--only`` runs; each takes (torch, the wrappers' module)
 PATH_PHASES = {"gossip_reference": phase_gossip_reference, "analysis": phase_analysis}
 
@@ -2808,6 +2884,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import adamw as ak
     from repro_torch.kernels import build
     from repro_torch.kernels import lowrank as lk
     from repro_torch.kernels import markov as mk
@@ -2825,7 +2902,8 @@ def main() -> int:
             if name in PATH_PHASES:
                 PATH_PHASES[name](torch, q)
             else:
-                module = {"kernels_lowrank": lk, "kernels_markov": mk}.get(name, q)
+                module = {"kernels_lowrank": lk, "kernels_markov": mk,
+                          "kernels_adamw": ak}.get(name, q)
                 KERNEL_PHASES[name](torch, module, ref, rec)
         log(f"{','.join(only)}: {time.perf_counter() - t0:.1f} s; {gpu_name_and_power()}")
         return 0
@@ -2840,6 +2918,7 @@ def main() -> int:
     phase_kernels_lowrank(torch, lk, ref, rec)
     phase_kernel_offsets(torch, q, ref, rec)
     phase_kernels_markov(torch, mk, ref, rec)
+    phase_kernels_adamw(torch, ak, ref, rec)
     log(f"phases through kernels: {time.perf_counter() - t0:.1f} s")
     totals = {name: 0 for name in KERNELS}
     runs = [phase_train(torch, algo, wire, steps, per_step, q)

@@ -70,6 +70,10 @@ SIGNATURES = {
         "markov_walk_launch": (_P, _P, _I, _I, _I, _U32, _F, _I, _P),
         "markov_scores_launch": (_P, _P, _P, _I, _I, _I, _U32, _F, _P),
     },
+    "adamw": {
+        "adamw_update_launch": (_P, _P, _P, _P, _P, _I64, _I, _F, _F, _F, _F, _F, _F, _F, _F,
+                                _F, _P),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,8 @@
 ``csrc/sign.cu``, sparse select-pack (K6), unpack-scatter (K6b) and
 scatter-axpy (K6c) in ``csrc/sparse.cu``; the launch counters of these, of
 the low-rank kernels (K7a, K7b, ``kernels/lowrank.py``) and of the data
-layer's Markov walk (``kernels/markov.py``) in :data:`KERNEL_WRAPPERS`.
+layer's Markov walk (``kernels/markov.py``) and of the optim layer's AdamW
+update (``kernels/adamw.py``) in :data:`KERNEL_WRAPPERS`.
 
 Same signatures and the same ``(rows, cols)`` contract as the JAX package's
 functions of the same names: one block per row, ``cols % 128 == 0`` — but
@@ -31,6 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.adamw import adamw_update
 from repro_torch.kernels.lowrank import (
     ACC_DTYPES,
     LOWRANK_AXPY_2D_BF16,
@@ -473,7 +475,7 @@ KERNEL_WRAPPERS = (quantize_pack_2d, unpack_dequant_axpy_2d, quantize_2d, dequan
                    sparse_select_pack_2d, sparse_unpack_scatter_2d, sparse_scatter_axpy_2d,
                    lowrank_project_2d, lowrank_axpy_2d, UNPACK_DEQUANT_AXPY_2D_BF16,
                    UNPACK_SIGN_AXPY_2D_BF16, SPARSE_SCATTER_AXPY_2D_BF16, LOWRANK_AXPY_2D_BF16,
-                   markov_walk)
+                   markov_walk, adamw_update)
 
 
 def reset_launch_counts() -> None:

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the wire kernels: quantize-pack and
 unpack-dequant-axpy, quantize, dequantize and unpack-dequantize, sign-pack
 and sign-axpy, sparse select-pack, unpack-scatter and scatter-axpy,
-low-rank project and low-rank axpy; and of the data layer's Markov walk
-(:func:`markov_walk_ref`, the data pipeline's eager walk).
+low-rank project and low-rank axpy; of the data layer's Markov walk
+(:func:`markov_walk_ref`, the data pipeline's eager walk); and of the optim
+layer's AdamW update (:func:`adamw_update_ref`, the optimizer's eager body).
 
 The port's copy of the JAX package's ``kernels/ref.py`` and the helpers of
 ``kernels/quant.py`` (``stream_geometry``, ``idx_bits_for``,
@@ -626,6 +627,34 @@ def markov_walk_ref(key: torch.Tensor, *, vocab: int, length: int, seed: int,
         tok = torch.argmax(logits + gumbel, dim=-1, keepdim=True)
         seq.append(tok)
     return torch.cat(seq, dim=1)
+
+
+# ------------------------------------------------------- the AdamW update
+
+def adamw_bias_corrections(b1: float, b2: float, t: int) -> tuple:
+    """``(1 - b1**t, 1 - b2**t)`` in float32, as ``b1 ** t.astype(f32)`` in
+    JAX (Python floats holding float32 values)."""
+    return (float(np.float32(1) - np.float32(b1) ** np.float32(t)),
+            float(np.float32(1) - np.float32(b2) ** np.float32(t)))
+
+
+def adamw_update_ref(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor, p: torch.Tensor, *,
+                     b1: float, b2: float, eps: float, weight_decay: float, lr: float,
+                     t: int) -> torch.Tensor:
+    """Plain version of the AdamW kernel (``csrc/adamw.cu``): the moments
+    ``m`` and ``v`` updated in place, the update ``-lr * (m_hat / (sqrt(v_hat)
+    + eps) + wd * p)`` returned in a new float32 tensor; eagerly, each
+    operation rounded as in JAX (a product with a bf16 ``g`` or ``p`` rounds
+    to bf16 before it meets the float32 moments)."""
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+    bc1, bc2 = adamw_bias_corrections(b1, b2, t)
+    # -lr * ((m/bc1) / (sqrt(v/bc2) + eps) + wd*p), each op rounded as in
+    # JAX; in place on two temporaries, which matters at full width
+    upd = m / bc1
+    upd.div_(torch.sqrt(v / bc2).add_(eps))
+    upd.add_(weight_decay * p)
+    return upd.mul_(-lr)
 
 
 # ------------------------------------------------------------- comparison

@@ -6,16 +6,17 @@ one leaf (``update_leaf``), so the decentralized round can take each leaf's
 update, mix, encode and decode before it touches the next leaf and never
 holds a whole-tree update temporary.  ``update`` is the tree form.  Moment
 buffers are updated in place; the step counter and the scalars derived from
-it live on the host, rounded to float32 as JAX rounds them.
+it live on the host, rounded to float32 as JAX rounds them.  AdamW's leaf
+update is one kernel on the card (``kernels/adamw.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Tuple
 
-import numpy as np
 import torch
 
+from repro_torch.kernels.adamw import adamw_update
 from repro_torch.trace import span
 from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map
 
@@ -75,18 +76,10 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                         v=tree_map(torch.zeros_like, params))
 
     def update_leaf(g, m, v, p, lr, t):
+        # one kernel a leaf on the card, the eager body on the CPU
         with span("optim.update"):
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            # bias corrections in float32, as ``b1 ** t.astype(f32)`` in JAX
-            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
-            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
-            # -lr * ((m/bc1) / (sqrt(v/bc2) + eps) + wd*p), each op rounded
-            # as in JAX; in place on two temporaries, which matters at full width
-            upd = m / bc1
-            upd.div_(torch.sqrt(v / bc2).add_(eps))
-            upd.add_(weight_decay * p)
-            return upd.mul_(-lr)
+            return adamw_update(g, m, v, p, b1=b1, b2=b2, eps=eps,
+                                weight_decay=weight_decay, lr=lr, t=t)
 
     return Optimizer("adamw", init, update_leaf)
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K3,
 K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b, and the bf16-accumulator
-variants of K2, K5b, K6c and K7b, and the data layer's Markov walk,
-against their plain versions; the dryrun's executed smoke on the card; the
+variants of K2, K5b, K6c and K7b, the data layer's Markov walk and the
+optim layer's AdamW update, against their plain versions; the dryrun's
+executed smoke on the card; the
 step analyzer's grid on the card (``repro_torch.analysis.step_checks``); a
 step of the small DeepSeek-V2-Lite cell (latent attention, dropless expert
 share) with no host read.
@@ -964,6 +965,86 @@ def test_markov_walk_launches_equal_calls_in_a_batch(cuda):
     assert torch.equal(one["tokens"], stacked["tokens"][3])
     assert torch.equal(stacked["labels"][..., :-1], stacked["tokens"][..., 1:])
 
+
+
+# ------------------------------------------------------------ the AdamW update
+
+ADAMW_KW = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+# 2-D and 3-D stacked leaves, whole vectors of 4 and not, and one whose
+# threads take several trips of the grid-stride loop
+ADAMW_SHAPES = [(8, 1000), (8, 1001), (4, 3, 256), (4, 3, 257), (8, (1 << 20) + 3)]
+
+
+def _adamw_leaf(shape, dtype, device, seed):
+    """(g, m, v, p): g holds NaN, +-inf, -0.0 and a subnormal, a few moments
+    are fresh zeros."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    g = torch.randn(shape, generator=gen, device=device).mul_(1e-2)
+    g.view(-1)[:5] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 1e-40])
+    m = torch.randn(shape, generator=gen, device=device).mul_(1e-3)
+    v = torch.rand(shape, generator=gen, device=device).mul_(1e-4)
+    m.view(-1)[5:9], v.view(-1)[5:9] = 0.0, 0.0
+    p = torch.randn(shape, generator=gen, device=device)
+    return g.to(dtype), m, v, p.to(dtype)
+
+
+@pytest.mark.parametrize("shape", ADAMW_SHAPES, ids=str)
+@pytest.mark.parametrize("t", [1, 2, 300])
+@pytest.mark.parametrize("lr", [0.0, 3e-3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_adamw_kernel_bit_equal(cuda, shape, t, lr, dtype):
+    """The AdamW kernel's update, ``m`` and ``v`` against the plain version
+    on the card (the eager body), bit for bit; at lr 0 the update's zeros
+    keep the eager body's signs.  bf16 ``g`` and ``p`` meet f32 moments."""
+    from repro_torch.kernels import adamw as ak
+
+    g, m, v, p = _adamw_leaf(shape, dtype, cuda, seed=t + len(shape))
+    mr, vr = m.clone(), v.clone()
+    calls, launches = ak.adamw_update.calls, ak.adamw_update.launches
+    got = ak.adamw_update(g, m, v, p, lr=lr, t=t, **ADAMW_KW)
+    want = ref.adamw_update_ref(g, mr, vr, p, lr=lr, t=t, **ADAMW_KW)
+    torch.cuda.synchronize()
+    assert ak.adamw_update.calls - calls == ak.adamw_update.launches - launches == 1
+    for name, a, b in (("update", got, want), ("m", m, mr), ("v", v, vr)):
+        assert ref.same_bits(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.parametrize("view", ["row1", "off1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_adamw_kernel_on_views_bit_equal(cuda, view, dtype):
+    """Leaves that are contiguous views into larger buffers: one row in
+    (aligned: the vector loop) and one element in (off the vectors'
+    alignment: one element a trip)."""
+    from repro_torch.kernels import adamw as ak
+
+    g, m, v, p = _adamw_leaf((8, 1000), dtype, cuda, seed=5)
+    gv, mv, vv, pv = (ref.offset_views(x)[view] for x in (g, m, v, p))
+    got = ak.adamw_update(gv, mv, vv, pv, lr=3e-3, t=2, **ADAMW_KW)
+    want = ref.adamw_update_ref(g, m, v, p, lr=3e-3, t=2, **ADAMW_KW)
+    torch.cuda.synchronize()
+    for name, a, b in (("update", got, want), ("m", mv, m), ("v", vv, v)):
+        assert ref.same_bits(a, b), (name, view)
+
+
+def test_adamw_launches_equal_calls_in_a_card_step(cuda):
+    """Two steps of reduced granite, DCD ``quant:4`` through
+    ``run_training`` on the card: AdamW takes its kernel once a leaf a
+    step, every call a launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as ak
+    from repro_torch.launch.train import TrainConfig, run_training
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("granite-3-2b").reduced()
+    tc = TrainConfig(algo="dcd", wire="quant:4", n_nodes=4, seq_len=16, global_batch=8,
+                     steps=2, log_every=1)
+    calls, launches = ak.adamw_update.calls, ak.adamw_update.launches
+    hist = run_training(cfg, tc, device=cuda)
+    torch.cuda.synchronize()
+    leaves = len(tree_leaves(hist["state"].params))
+    assert ak.adamw_update.calls - calls == ak.adamw_update.launches - launches == leaves * 2
+    assert all(math.isfinite(x) for x in hist["losses"])
 
 
 # ------------------------------------------- latent attention and dropless MoE

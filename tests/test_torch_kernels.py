@@ -129,6 +129,8 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
     tq.lowrank_axpy_2d(p, torch.zeros((256, 2)), xb, weight=1.0)
     tq.markov_walk(torch.zeros((2, 1), dtype=torch.int64), vocab=7, length=3, seed=1,
                    concentration=0.3)                             # the data's Markov walk
+    tq.adamw_update(x, torch.zeros_like(x), torch.zeros_like(x), x, b1=0.9, b2=0.95, eps=1e-8,
+                    weight_decay=0.01, lr=1e-3, t=1)              # the optim layer's AdamW
     assert tq.launch_counts() == {"quantize_pack_2d": 0, "unpack_dequant_axpy_2d": 0,
                                   "quantize_2d": 0, "dequantize_2d": 0,
                                   "unpack_dequant_2d": 0,
@@ -139,7 +141,8 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
                                   "unpack_dequant_axpy_2d_bf16": 0,
                                   "unpack_sign_axpy_2d_bf16": 0,
                                   "sparse_scatter_axpy_2d_bf16": 0,
-                                  "lowrank_axpy_2d_bf16": 0, "markov_walk": 0}
+                                  "lowrank_axpy_2d_bf16": 0, "markov_walk": 0,
+                                  "adamw_update": 0}
     for fn in tq.KERNEL_WRAPPERS:                                 # the counter is the wrapper's
         fn.launches = 3
     assert set(tq.launch_counts().values()) == {3}

@@ -5,8 +5,8 @@ steps traced.  Traced, every span name appears a known number of times a
 step, every parent is in its child's step, and self times add up inside
 the ``step`` span.  Every call of a kernel wrapper (``build.count_call``)
 runs inside ``gossip.encode`` (the send kernels), ``gossip.decode`` (the
-receive kernels) or ``data.batch`` (the data's Markov walk, once a batch),
-for every algorithm that encodes.  The step analyzer
+receive kernels), ``data.batch`` (the data's Markov walk, once a batch) or
+``optim.update`` (AdamW, once a leaf), for every algorithm that encodes.  The step analyzer
 finds no host read with tracing on.  On ranks, ``run_training`` reports the
 ``transport.<label>`` spans' seconds only when tracing is on.  The model is
 granite-3-2b's reduced config cut to one layer of width 64, on a ring of 4.
@@ -31,7 +31,7 @@ from repro_torch.launch.train import TrainConfig, run_training
 from repro_torch.models.api import build_model
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import constant
-from repro_torch.tree import leaf_items
+from repro_torch.tree import leaf_items, tree_leaves
 
 TINY = dataclasses.replace(get_config("granite-3-2b").reduced(), n_layers=1, d_model=64,
                            n_heads=2, n_kv_heads=1, head_dim=32, d_ff=128, vocab=128)
@@ -135,15 +135,18 @@ def test_kernel_calls_run_inside_encode_and_decode(algo, wire, monkeypatch):
         count_call(counter, launched)
 
     monkeypatch.setattr(build, "count_call", counted)
-    _, spans = _run(algo, wire, True)
+    state, spans = _run(algo, wire, True)
     assert calls
     assert sum(name == "markov_walk" for name, _ in calls) == STEPS
+    assert sum(name == "adamw_update" for name, _ in calls) == \
+        STEPS * len(tree_leaves(state.params))
     for name, t in calls:
         inner = max((s for s in spans if s[3] <= t <= s[4]), key=lambda s: s[3])
         home = ("data.batch" if name == "markov_walk" else
+                "optim.update" if name == "adamw_update" else
                 "gossip.encode" if name in SEND else "gossip.decode")
         assert inner[0] == home, name
-        assert name in SEND | RECEIVE | {"markov_walk"}, name
+        assert name in SEND | RECEIVE | {"markov_walk", "adamw_update"}, name
 
 
 @pytest.mark.parametrize("algo,topology,wire", [("dcd", "ring", "quant:4"),

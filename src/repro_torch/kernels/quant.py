@@ -15,9 +15,12 @@ wrapper checks device, dtype, shape and contiguity, runs the plain version
 (``kernels/ref.py``) for CPU tensors, and for CUDA tensors launches its
 kernel on the current stream or raises (a row wider than ``MAX_COLS``
 included, for the kernels that stage a row); there is no fallback.  Each keeps a
-plain integer count of its kernel launches (``launches``), which
-``chip_smoke.py`` reads to show the training path went through the kernels;
-runs of the plain version do not count.  Beside it ``calls`` counts every
+plain integer count of its kernel launches (``launches``), which the card
+tests ``test_no_wrapper_takes_its_plain_version_in_a_card_step``,
+``test_markov_walk_launches_equal_calls_in_a_batch`` and
+``test_adamw_launches_equal_calls_in_a_card_step`` hold to the calls to show
+the training path went through the kernels; runs of the plain version do
+not count.  Beside it ``calls`` counts every
 call that ran, on the card or through the plain version (what
 ``repro_torch.analysis.step_checks`` holds to the decode-site formula on the
 CPU).

@@ -114,7 +114,7 @@ from repro_torch.distributed.transport import Lazy, make_transport, wire_refused
 from repro_torch.distributed.wire import Payload, WireFormat, leaf_seed, make_wire_format
 from repro_torch.optim.optimizers import OptState, Optimizer
 from repro_torch.trace import span
-from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map
+from repro_torch.tree import leaf_items, tree_from_items, tree_leaves, tree_map, unstack
 
 ALGOS = ("cpsgd", "dpsgd", "naive", "dcd", "ecd", "choco", "deepsqueeze")
 # the algorithms that encode through a wire format
@@ -264,18 +264,20 @@ def _node_grads(loss_fn: Callable, params: Any, batch: Dict[str, torch.Tensor]):
     """Per-node losses, metrics and gradients in one backward: node ``i``
     evaluates ``loss_fn(params[i], batch[i])``; the nodes share no
     parameter, so the gradient of the summed losses is every node's own
-    gradient.  Losses and each metric come back as (nodes,) vectors."""
+    gradient.  Losses and each metric come back as (nodes,) vectors.  The
+    nodes' slices come from one ``torch.unbind`` a leaf
+    (:func:`~repro_torch.tree.unstack`), so the backward stacks each leaf's
+    node gradients once instead of adding up a full-size zero-filled
+    gradient a node."""
     leaves = tree_leaves(params)
-    n = leaves[0].shape[0]
     for l in leaves:
         l.requires_grad_(True)
     try:
         with torch.enable_grad():
             with span("model.forward"):
                 losses, metrics = [], []
-                for i in range(n):
-                    loss_i, met_i = loss_fn(tree_map(lambda l: l[i], params),
-                                            {k: v[i] for k, v in batch.items()})
+                for i, params_i in enumerate(unstack(params)):
+                    loss_i, met_i = loss_fn(params_i, {k: v[i] for k, v in batch.items()})
                     losses.append(loss_i)
                     metrics.append(met_i)
                 losses_t = torch.stack(losses)

@@ -33,7 +33,8 @@ from repro_torch.models.layers import (
     layernorm_init,
     sinusoidal_positions,
 )
-from repro_torch.models.lm import _layer, _layer_cache, run_layer, unstack
+from repro_torch.models.lm import _layer, _layer_cache, run_layer
+from repro_torch.tree import unstack
 
 
 @dataclasses.dataclass

@@ -15,7 +15,7 @@ use.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
@@ -43,7 +43,7 @@ from repro_torch.models.layers import (
     swiglu,
     swiglu_init,
 )
-from repro_torch.tree import leaf_items, tree_from_items
+from repro_torch.tree import unstack
 
 
 def _norm_init(cfg: ArchConfig, d: int, *, device, lead: tuple = ()):
@@ -209,15 +209,6 @@ def _layer(tree: Any, idx) -> Any:
     if isinstance(tree, dict):
         return {k: _layer(v, idx) for k, v in tree.items()}
     return tree[idx]
-
-
-def unstack(tree: Any) -> List[Any]:
-    """The layers of a stacked tree, each leaf split by one ``torch.unbind``:
-    in the backward pass the layers' gradients are stacked once, where
-    indexing each layer (``tree[l]``) would write a zero tensor of the whole
-    stack for every layer, O(L^2) bytes at depth L."""
-    cols = [(p, torch.unbind(l, 0)) for p, l in leaf_items(tree)]
-    return [tree_from_items([(p, ls[i]) for p, ls in cols]) for i in range(_n_stacked(tree))]
 
 
 def _n_stacked(tree: Any, axis: int = 0) -> int:

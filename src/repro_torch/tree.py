@@ -9,6 +9,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Tuple
 
+import torch
+
 
 def leaf_items(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """``[(path, leaf), ...]`` in JAX flatten order (sorted keys, depth first);
@@ -30,6 +32,17 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     if not isinstance(tree, dict):
         return fn(tree, *rest)
     return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+
+
+def unstack(tree: Any) -> List[Any]:
+    """The slices of a stacked tree along its leading axis (a model's layers,
+    the gossip nodes' parameters), each leaf split by one ``torch.unbind``.
+    In the backward pass autograd then stacks the slices' gradients once a
+    leaf, where indexing each slice (``leaf[i]``) would write a zero tensor of
+    the whole leaf for every slice and add them up: O(n^2) bytes for n
+    slices."""
+    cols = tree_map(lambda l: torch.unbind(l, 0), tree)
+    return [tree_map(lambda c: c[i], cols) for i in range(len(tree_leaves(cols)[0]))]
 
 
 def tree_from_items(items: List[Tuple[str, Any]]) -> Dict[str, Any]:

@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels (marker ``cuda``): K1, K2, K3,
 K4a, K4b, K5a, K5b, K6, K6b, K6c, K7a and K7b, and the bf16-accumulator
 variants of K2, K5b, K6c and K7b, the data layer's Markov walk and the
-optim layer's AdamW update, against their plain versions; the dryrun's
+optim layer's AdamW update, against their plain versions; the nodes'
+gradients of ``_node_grads`` against per-node indexing (peak memory and
+bits); the dryrun's
 executed smoke on the card; the
 step analyzer's grid on the card (``repro_torch.analysis.step_checks``); a
 step of the small DeepSeek-V2-Lite cell (latent attention, dropless expert
@@ -1045,6 +1047,64 @@ def test_adamw_launches_equal_calls_in_a_card_step(cuda):
     leaves = len(tree_leaves(hist["state"].params))
     assert ak.adamw_update.calls - calls == ak.adamw_update.launches - launches == leaves * 2
     assert all(math.isfinite(x) for x in hist["losses"])
+
+
+# ---------------------------------------------- the nodes' gradients
+
+def _indexed_node_grads(loss_fn, params, batch):
+    """``_node_grads`` with node ``i``'s slice taken as ``leaf[i]``: its
+    backward zero-fills a tensor of the whole stacked leaf a node and adds
+    them up."""
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = tree_leaves(params)
+    for l in leaves:
+        l.requires_grad_(True)
+    try:
+        losses = torch.stack([loss_fn(tree_map(lambda l: l[i], params),
+                                      {k: v[i] for k, v in batch.items()})[0]
+                              for i in range(leaves[0].shape[0])])
+        losses.sum().backward()
+        grads = [l.grad for l in leaves]
+    finally:
+        for l in leaves:
+            l.grad = None
+            l.requires_grad_(False)
+    return losses.detach(), grads
+
+
+def test_node_grads_peak_memory_no_higher_than_indexing(cuda):
+    """A stacked leaf of 1 GiB (8 nodes of 4,096 x 8,192 f32) beside a small
+    one: ``_node_grads`` (one ``unbind`` a leaf) allocates at its peak no
+    more than the per-node indexing version, and its losses and gradients
+    are bit-equal to that version's."""
+    from repro_torch.distributed.decentralized import _node_grads
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    params = {"w": torch.randn((8, 4096, 8192), generator=gen, device=cuda).mul_(1e-2),
+              "g": torch.randn((8, 8192), generator=gen, device=cuda)}
+    assert params["w"].numel() * params["w"].element_size() >= 1 << 30
+    batch = {"x": torch.randn((8, 64, 4096), generator=gen, device=cuda)}
+
+    def loss_fn(p, b):
+        return torch.tanh(b["x"] @ p["w"] * p["g"]).square().mean(), {}
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out
+
+    peak(_node_grads)                       # warm the kernels and cuBLAS's workspace
+    got_peak, (losses, _, grads) = peak(_node_grads)
+    want_peak, (want_losses, want_grads) = peak(_indexed_node_grads)
+    assert got_peak <= want_peak, (got_peak, want_peak)
+    assert torch.equal(losses, want_losses)
+    for g, w in zip(grads, want_grads):
+        assert torch.equal(g, w)
 
 
 # ------------------------------------------- latent attention and dropless MoE

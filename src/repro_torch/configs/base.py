@@ -23,7 +23,12 @@ class MoESpec:
     device may hold a share of the experts, ``n_held`` of them from
     ``first_held`` (None: all): the router still scores all ``n_routed``
     and only the held experts' part of the output is computed.
-    ``norm_topk`` divides the chosen weights by their sum."""
+    ``norm_topk`` divides the chosen weights by their sum.  ``score``: the
+    router's softmax over its logits, or a sigmoid of each (DeepSeek-V3's
+    and Nemotron-H's; dropless only); ``routed_scale`` multiplies the
+    chosen weights; ``act``: the experts' SwiGLU (``wi``, ``wg``, ``wo``)
+    or a non-gated ``relu(x wi)^2 wo`` (``relu2``), the shared experts'
+    alike."""
     n_routed: int
     n_shared: int
     top_k: int
@@ -34,6 +39,9 @@ class MoESpec:
     norm_topk: bool = True
     first_held: int = 0
     n_held: Optional[int] = None
+    score: str = "softmax"                 # softmax | sigmoid
+    routed_scale: float = 1.0
+    act: str = "swiglu"                    # swiglu | relu2
 
     @property
     def held(self) -> int:
@@ -43,11 +51,16 @@ class MoESpec:
 
 @dataclasses.dataclass(frozen=True)
 class SSMSpec:
+    """``gate_first``: the published Mamba2 gated norm, ``g * RMS(y *
+    silu(z))`` over each of ``n_groups`` groups of the inner width; off,
+    the port's norm-before-gate ``RMS(y) * g * silu(z)`` over the whole
+    width."""
     d_inner: int
     d_state: int
     n_heads: int
     n_groups: int = 1
     chunk: int = 128
+    gate_first: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +104,11 @@ class ArchConfig:
     frontend: Optional[FrontendSpec] = None
     encoder_layers: int = 0         # >0 => encoder-decoder (whisper)
     hybrid_period: int = 0          # >0 => every period-th layer is the SHARED attn block
+    # a period of layers of three kinds (Nemotron-H's ``hybrid_override_pattern``):
+    # 'M' a Mamba2 mixer, 'E' the experts, '*' attention, each its own pre-norm
+    # residual layer; n_layers is a whole number of periods
+    layer_pattern: str = ""
+    rope: bool = True               # False: attention applies no position encoding
     long_context_window: int = 8192 # ring-buffer window used for long-context decode
     source: str = ""                # citation
 
@@ -103,6 +121,15 @@ class ArchConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def n_periods(self) -> int:
+        """Periods of ``layer_pattern`` in the ``n_layers`` layers."""
+        periods, rest = divmod(self.n_layers, len(self.layer_pattern))
+        if rest:
+            raise ValueError(f"{self.n_layers} layers are no whole number of periods "
+                             f"{self.layer_pattern!r}")
+        return periods
 
     @property
     def is_encdec(self) -> bool:
@@ -133,7 +160,8 @@ class ArchConfig:
                 first_held=0, n_held=None if self.moe.n_held is None else 2)
         if self.ssm:
             changes["ssm"] = dataclasses.replace(
-                self.ssm, d_inner=2 * d, d_state=16, n_heads=4, chunk=8)
+                self.ssm, d_inner=2 * d, d_state=16, n_heads=4, chunk=8,
+                n_groups=min(self.ssm.n_groups, 4))
         if self.mla:
             changes["mla"] = dataclasses.replace(self.mla, kv_lora=32, qk_nope=16, qk_rope=8,
                                                  v_head=16)
@@ -146,6 +174,11 @@ class ArchConfig:
         if self.hybrid_period:
             changes["hybrid_period"] = 2
             changes["n_layers"] = 4
+        if self.layer_pattern:
+            # the shortest head of the period that holds each of its kinds
+            ends = [self.layer_pattern.index(k) + 1 for k in set(self.layer_pattern)]
+            changes["layer_pattern"] = self.layer_pattern[:max(ends)]
+            changes["n_layers"] = max(ends)
         changes["long_context_window"] = 64
         return dataclasses.replace(self, **changes)
 

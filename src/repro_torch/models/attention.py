@@ -169,14 +169,19 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dv).to(q.dtype)
 
 
+def _roped(x: torch.Tensor, positions: torch.Tensor, theta: float, rope: bool) -> torch.Tensor:
+    return apply_rope(x, positions, theta) if rope else x
+
+
 def gqa_forward(x: torch.Tensor, p: Params, *, n_heads: int, n_kv: int, head_dim: int,
                 theta: float, window: Optional[int] = None,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Training / prefill self-attention (causal, optionally sliding-window)."""
+                positions: Optional[torch.Tensor] = None, rope: bool = True) -> torch.Tensor:
+    """Training / prefill self-attention (causal, optionally sliding-window);
+    with ``rope`` False no position encoding (Nemotron-H's attention)."""
     B, S, _ = x.shape
     pos = positions if positions is not None else torch.arange(S, device=x.device)
-    q = apply_rope(_split_heads(dense(x, p["wq"]), n_heads), pos, theta)
-    k = apply_rope(_split_heads(dense(x, p["wk"]), n_kv), pos, theta)
+    q = _roped(_split_heads(dense(x, p["wq"]), n_heads), pos, theta, rope)
+    k = _roped(_split_heads(dense(x, p["wk"]), n_kv), pos, theta, rope)
     v = _split_heads(dense(x, p["wv"]), n_kv)
     if S >= FLASH_THRESHOLD:
         out = _sdpa_chunked(q, k, v, window=window)
@@ -211,14 +216,14 @@ def _write_slot(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor) -> tor
 
 
 def gqa_decode(x: torch.Tensor, cache: KVCache, p: Params, *, n_heads: int, n_kv: int,
-               head_dim: int, theta: float) -> tuple:
+               head_dim: int, theta: float, rope: bool = True) -> tuple:
     """One-token decode: x (B, 1, d) against one layer's cache (k/v (B, C,
     KV, D)), which takes the new entries in place; returns y and the cache
     with the position advanced."""
     B = x.shape[0]
     t = torch.tensor([cache.pos], device=x.device)
-    q = apply_rope(_split_heads(dense(x, p["wq"]), n_heads), t, theta)
-    k_new = apply_rope(_split_heads(dense(x, p["wk"]), n_kv), t, theta)
+    q = _roped(_split_heads(dense(x, p["wq"]), n_heads), t, theta, rope)
+    k_new = _roped(_split_heads(dense(x, p["wk"]), n_kv), t, theta, rope)
     v_new = _split_heads(dense(x, p["wv"]), n_kv)
     valid = _write_slot(cache, k_new, v_new)
     out = _sdpa(q, cache.k, cache.v, valid[None, None, :].expand(B, 1, -1))

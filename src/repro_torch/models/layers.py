@@ -112,6 +112,16 @@ def gelu_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
     return dense(gelu(dense(x, p["wi"])), p["wo"])
 
 
+def relu2(x: torch.Tensor) -> torch.Tensor:
+    """Squared ReLU (Nemotron-H's ``relu2``)."""
+    return torch.square(F.relu(x))
+
+
+def relu2_mlp(x: torch.Tensor, p: Params) -> torch.Tensor:
+    """The non-gated ``relu(x wi)^2 wo`` on :func:`gelu_mlp_init`'s leaves."""
+    return dense(relu2(dense(x, p["wi"])), p["wo"])
+
+
 # ----------------------------------------------------------------- RoPE
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:

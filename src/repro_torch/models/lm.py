@@ -7,7 +7,12 @@ hybrid (Zamba2) walks periods of Mamba layers (``params["pm"]`` with leading
 axes ``(n_periods, per_period)``), each followed by ONE shared attention
 block whose parameters are reused at every application (true parameter
 sharing: its gradient is the sum over its applications); each application
-still owns its own KV cache.  Weights stay float32; the forward casts every
+still owns its own KV cache.  A layer pattern (Nemotron-H's
+``hybrid_override_pattern``, ``cfg.layer_pattern``) stacks each kind of
+layer on its own: ``params["blocks"]`` holds ``mamba``, ``moe`` and
+``attn``, each with leading axes ``(n_periods, layers of the kind a
+period)``, and each period walks its pattern, taking each kind's next
+layer.  Weights stay float32; the forward casts every
 float32 leaf of rank >= 2 of a layer to bf16 at the top of the layer
 (``_cast_weights``, as JAX does), and the decode step casts each matrix at
 use.
@@ -15,6 +20,7 @@ use.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -83,11 +89,18 @@ def _attn_fwd(cfg: ArchConfig, x, p) -> torch.Tensor:
                                 qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
                                 theta=cfg.rope_theta, latent_norm=m.latent_norm, yarn=m.yarn)
     return attn.gqa_forward(x, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                            head_dim=cfg.hd, theta=cfg.rope_theta)
+                            head_dim=cfg.hd, theta=cfg.rope_theta, rope=cfg.rope)
+
+
+def _moe_init(cfg: ArchConfig, gen, *, device, lead: tuple) -> Params:
+    m = cfg.moe
+    return moe_lib.moe_init(gen, cfg.d_model, m.d_expert, m.n_routed, m.n_shared,
+                            device=device, lead=lead, n_held=m.n_held, act=m.act)
 
 
 def _block_init(cfg: ArchConfig, gen, kind: str, *, device, lead: tuple) -> Params:
-    """kind: 'attn_dense' | 'attn_dense_moe0' | 'attn_moe' | 'ssm'."""
+    """kind: 'attn_dense' | 'attn_dense_moe0' | 'attn_moe' | 'ssm', or a
+    pattern's 'moe' (experts only) | 'attn' (attention only)."""
     d = cfg.d_model
     if kind == "ssm":
         s = cfg.ssm
@@ -95,13 +108,17 @@ def _block_init(cfg: ArchConfig, gen, kind: str, *, device, lead: tuple) -> Para
                 "mixer": ssm_lib.ssm_init(gen, d, d_inner=s.d_inner, d_state=s.d_state,
                                           n_heads=s.n_heads, n_groups=s.n_groups,
                                           device=device, lead=lead)}
+    if kind == "moe":
+        return {"ln": _norm_init(cfg, d, device=device, lead=lead),
+                "ffn": _moe_init(cfg, gen, device=device, lead=lead)}
+    if kind == "attn":
+        return {"ln": _norm_init(cfg, d, device=device, lead=lead),
+                "attn": _attn_init(cfg, gen, device=device, lead=lead)}
     p = {"ln1": _norm_init(cfg, d, device=device, lead=lead),
          "attn": _attn_init(cfg, gen, device=device, lead=lead),
          "ln2": _norm_init(cfg, d, device=device, lead=lead)}
     if kind == "attn_moe":
-        m = cfg.moe
-        p["ffn"] = moe_lib.moe_init(gen, d, m.d_expert, m.n_routed, m.n_shared,
-                                    device=device, lead=lead, n_held=m.n_held)
+        p["ffn"] = _moe_init(cfg, gen, device=device, lead=lead)
     else:
         d_ff = cfg.moe.d_ff_dense if (cfg.moe and kind == "attn_dense_moe0") else cfg.d_ff
         p["ffn"] = _mlp_init(cfg, gen, d, d_ff, device=device, lead=lead)
@@ -118,10 +135,12 @@ def _moe(cfg: ArchConfig, x, p):
     if m.capacity_factor is None:
         return moe_lib.moe_dropless(x, p, n_routed=m.n_routed, n_shared=m.n_shared,
                                     top_k=m.top_k, norm_topk=m.norm_topk,
-                                    first_held=m.first_held)
-    if m.held != m.n_routed or not m.norm_topk:
-        raise ValueError("a share of the experts and unnormalized weights route dropless: "
-                         "capacity_factor None")
+                                    first_held=m.first_held, score=m.score,
+                                    routed_scale=m.routed_scale, act=m.act)
+    if m.held != m.n_routed or not m.norm_topk or \
+            (m.score, m.routed_scale, m.act) != ("softmax", 1.0, "swiglu"):
+        raise ValueError("a share of the experts, unnormalized or scaled weights, a sigmoid "
+                         "router and relu2 experts route dropless: capacity_factor None")
     return moe_lib.moe_forward(x, p, n_routed=m.n_routed, n_shared=m.n_shared,
                                top_k=m.top_k, capacity_factor=m.capacity_factor)
 
@@ -132,8 +151,14 @@ def _block_fwd(cfg: ArchConfig, h, p, kind: str) -> Tuple[torch.Tensor, Dict]:
         s = cfg.ssm
         h = h + ssm_lib.mamba_forward(_norm(cfg, h, p["ln"]), p["mixer"],
                                       d_inner=s.d_inner, d_state=s.d_state,
-                                      n_heads=s.n_heads, n_groups=s.n_groups, chunk=s.chunk)
+                                      n_heads=s.n_heads, n_groups=s.n_groups, chunk=s.chunk,
+                                      gate_first=s.gate_first)
         return h, aux
+    if kind == "moe":
+        y, aux = _moe(cfg, _norm(cfg, h, p["ln"]), p["ffn"])
+        return h + y, aux
+    if kind == "attn":
+        return h + _attn_fwd(cfg, _norm(cfg, h, p["ln"]), p["attn"]), aux
     h = h + _attn_fwd(cfg, _norm(cfg, h, p["ln1"]), p["attn"])
     x = _norm(cfg, h, p["ln2"])
     if kind == "attn_moe":
@@ -151,6 +176,23 @@ def _layer_kind(cfg: ArchConfig) -> str:
     if cfg.moe:
         return "attn_moe"
     return "attn_dense"
+
+
+# a pattern's letters -> the stack of params["blocks"] and the kind of layer
+PATTERN = {"M": ("mamba", "ssm"), "E": ("moe", "moe"), "*": ("attn", "attn")}
+
+
+def pattern_counts(cfg: ArchConfig) -> Dict[str, int]:
+    """Layers of each stack in a period of ``cfg.layer_pattern``, in the
+    order the pattern first names them."""
+    counts: Dict[str, int] = {}
+    for letter in cfg.layer_pattern:
+        if letter not in PATTERN:
+            raise ValueError(f"layer pattern {cfg.layer_pattern!r}: no kind of layer "
+                             f"{letter!r}; known {sorted(PATTERN)}")
+        stack = PATTERN[letter][0]
+        counts[stack] = counts.get(stack, 0) + 1
+    return counts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +235,12 @@ def lm_init(cfg: ArchConfig, seed: int, *, device) -> Params:
             "attn": attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, device=device),
             "ln2": _norm_init(cfg, d, device=device),
             "mlp": _mlp_init(cfg, gen, d, cfg.d_ff, device=device)}
+        return p
+    if cfg.layer_pattern:
+        kinds = dict(PATTERN.values())
+        p["blocks"] = {stack: _block_init(cfg, gen, kinds[stack], device=device,
+                                          lead=(cfg.n_periods, n))
+                       for stack, n in pattern_counts(cfg).items()}
         return p
     kind = _layer_kind(cfg)
     if cfg.moe and cfg.moe.dense_layers:
@@ -264,6 +312,26 @@ def _run_blocks(cfg: ArchConfig, h, stacked: Params, kind: str, remat: bool = Fa
     return h, total
 
 
+def _run_pattern(cfg: ArchConfig, h, blocks: Params, remat: bool = False):
+    """Walk each period of ``blocks`` (:data:`PATTERN`'s stacks) through the
+    layer pattern, each letter taking its stack's next layer; h and the aux
+    terms over the layers (:func:`_add_aux`)."""
+    total = _zero_aux(h.device)
+    fns = {stack: functools.partial(_pattern_block, cfg, kind)
+           for stack, kind in PATTERN.values()}
+    for period in unstack(blocks):
+        layers = {stack: iter(unstack(tree)) for stack, tree in period.items()}
+        for letter in cfg.layer_pattern:
+            stack = PATTERN[letter][0]
+            h, aux = run_layer(fns[stack], h, next(layers[stack]), remat)
+            total = _add_aux(total, aux)
+    return h, total
+
+
+def _pattern_block(cfg: ArchConfig, kind: str, h, lp):
+    return _block_fwd(cfg, h, _cast_weights(lp), kind)
+
+
 def _shared_attn_fwd(cfg: ArchConfig, h, sa: Params):
     h = h + attn.gqa_forward(_norm(cfg, h, sa["ln1"]), sa["attn"], n_heads=cfg.n_heads,
                              n_kv=cfg.n_kv_heads, head_dim=cfg.hd, theta=cfg.rope_theta)
@@ -293,6 +361,8 @@ def lm_hidden(cfg: ArchConfig, params: Params, tokens: torch.Tensor,
         if lay.tail:
             h, a2 = _run_blocks(cfg, h, params["tail"], "ssm", remat)
             aux = _add_aux(aux, a2)
+    elif cfg.layer_pattern:
+        h, aux = _run_pattern(cfg, h, params["blocks"], remat)
     else:
         if "blocks0" in params:
             # the dense first layers' aux (zeros) is not added, as in JAX
@@ -347,6 +417,11 @@ def lm_init_cache(cfg: ArchConfig, B: int, capacity: int, window: Optional[int] 
         if lay.tail:
             caches["tail"] = ssm_cache((lay.tail,))
         return caches
+    if cfg.layer_pattern:
+        # a cache for each Mamba2 and attention layer; the experts keep none
+        makes = {"mamba": ssm_cache, "attn": attn_cache}
+        return {stack: makes[stack]((cfg.n_periods, n))
+                for stack, n in pattern_counts(cfg).items() if stack in makes}
     make = ssm_cache if cfg.family == "ssm" else attn_cache
     n_dense = len(cfg.moe.dense_layers) if (cfg.moe and cfg.moe.dense_layers) else 0
     caches = {"blocks": make((cfg.n_layers - n_dense,))}
@@ -370,7 +445,7 @@ def _attn_decode(cfg: ArchConfig, x, cache, p):
                                qk_nope=m.qk_nope, qk_rope=m.qk_rope, v_head=m.v_head,
                                theta=cfg.rope_theta, latent_norm=m.latent_norm, yarn=m.yarn)
     return attn.gqa_decode(x, cache, p, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                           head_dim=cfg.hd, theta=cfg.rope_theta)
+                           head_dim=cfg.hd, theta=cfg.rope_theta, rope=cfg.rope)
 
 
 def _block_decode(cfg: ArchConfig, x, cache, p, kind: str):
@@ -379,8 +454,13 @@ def _block_decode(cfg: ArchConfig, x, cache, p, kind: str):
         s = cfg.ssm
         y, _ = ssm_lib.mamba_decode(_norm(cfg, x, p["ln"]), cache, p["mixer"],
                                     d_inner=s.d_inner, d_state=s.d_state,
-                                    n_heads=s.n_heads, n_groups=s.n_groups)
+                                    n_heads=s.n_heads, n_groups=s.n_groups,
+                                    gate_first=s.gate_first)
         return x + y
+    if kind == "moe":
+        return x + _moe(cfg, _norm(cfg, x, p["ln"]), p["ffn"])[0]
+    if kind == "attn":
+        return x + _attn_decode(cfg, _norm(cfg, x, p["ln"]), cache, p["attn"])[0]
     y, _ = _attn_decode(cfg, _norm(cfg, x, p["ln1"]), cache, p["attn"])
     x = x + y
     z = _norm(cfg, x, p["ln2"])
@@ -417,6 +497,15 @@ def lm_decode_step(cfg: ArchConfig, params: Params, caches: Dict[str, Any],
             x = x + _mlp(cfg, _norm(cfg, x, sa["ln2"]), sa["mlp"])
         if lay.tail:
             x = run(x, params["tail"], caches["tail"], "ssm")
+    elif cfg.layer_pattern:
+        for i in range(cfg.n_periods):
+            taken = dict.fromkeys(pattern_counts(cfg), 0)
+            for letter in cfg.layer_pattern:
+                stack, kind = PATTERN[letter]
+                idx = (i, taken[stack])
+                taken[stack] += 1
+                cache = _layer_cache(caches[stack], idx) if stack in caches else None
+                x = _block_decode(cfg, x, cache, _layer(params["blocks"][stack], idx), kind)
     else:
         if "blocks0" in params:
             x = run(x, params["blocks0"], caches["blocks0"], "attn_dense_moe0")

@@ -20,6 +20,10 @@ descending sort, so ties go to the lower expert index as in
   stay on the device as the offsets of one grouped product.
 
 Aux outputs: load-balance loss (Switch-style) + router z-loss.
+
+Dropless routing also takes Nemotron-H's (DeepSeek-V3's router with one
+group): a sigmoid score a logit, the chosen scores over their sum times a
+routed scale, and non-gated ``relu(x wi)^2 wo`` experts.
 """
 from __future__ import annotations
 
@@ -27,19 +31,30 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import Params, dense_init, swiglu, swiglu_init
+from repro_torch.models.layers import (
+    Params,
+    dense_init,
+    gelu_mlp_init,
+    relu2,
+    relu2_mlp,
+    swiglu,
+    swiglu_init,
+)
 from repro_torch.trace import span
 
 
 def moe_init(gen: torch.Generator, d: int, d_expert: int, n_routed: int, n_shared: int, *,
-             device, lead: tuple = (), n_held: Optional[int] = None) -> Params:
+             device, lead: tuple = (), n_held: Optional[int] = None,
+             act: str = "swiglu") -> Params:
     """The router over all ``n_routed`` experts; ``n_held`` of them (all
-    when None) stacked under ``experts``."""
+    when None) stacked under ``experts``; SwiGLU experts, or with ``act``
+    ``relu2`` the non-gated ``wi`` and ``wo`` alone."""
     held = n_routed if n_held is None else n_held
+    init = swiglu_init if act == "swiglu" else gelu_mlp_init
     p: Params = {"router": dense_init(gen, d, n_routed, device=device, scale=0.02, lead=lead),
-                 "experts": swiglu_init(gen, d, d_expert, device=device, lead=lead + (held,))}
+                 "experts": init(gen, d, d_expert, device=device, lead=lead + (held,))}
     if n_shared:
-        p["shared"] = swiglu_init(gen, d, d_expert * n_shared, device=device, lead=lead)
+        p["shared"] = init(gen, d, d_expert * n_shared, device=device, lead=lead)
     return p
 
 
@@ -130,22 +145,28 @@ def _expert_apply(expert_in: torch.Tensor, experts: Params) -> torch.Tensor:
 
 
 def moe_dropless(x: torch.Tensor, p: Params, *, n_routed: int, n_shared: int, top_k: int,
-                 norm_topk: bool = True, first_held: int = 0
+                 norm_topk: bool = True, first_held: int = 0, score: str = "softmax",
+                 routed_scale: float = 1.0, act: str = "swiglu"
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x (B, S, d) -> (B, S, d), aux terms; no token is dropped.
 
     The router's logits are taken in float32 over all ``n_routed`` experts
     (input and weight), then a softmax and a greedy top-k (ties to the lower
     index); the chosen weights are the raw gate values unless ``norm_topk``.
-    The experts of ``p["experts"]`` are experts ``first_held, ...,
-    first_held + E_held - 1``.  The (token, choice) pairs that chose one of
-    them are sorted by expert, their rows run through the held experts'
-    SwiGLU as one grouped product (``torch._grouped_mm``, the expert row
-    counts as its device offsets), and the weighted rows are summed back
-    into their tokens.  The shared experts are added once.  What the
-    experts held elsewhere would add is left out.
+    With ``score`` ``sigmoid`` the top-k is of each logit's sigmoid, and
+    ``norm_topk`` divides the chosen scores by their sum plus 1e-20, as
+    DeepSeek-V3's router does.  The weights are then multiplied by
+    ``routed_scale``.  The experts of ``p["experts"]`` are experts
+    ``first_held, ..., first_held + E_held - 1``.  The (token, choice) pairs
+    that chose one of them are sorted by expert, their rows run through the
+    held experts' SwiGLU (or, with ``act`` ``relu2``, ``relu(x wi)^2 wo``)
+    as grouped products (``torch._grouped_mm``, the expert row counts as
+    their device offsets), and the weighted rows are summed back into their
+    tokens.  The shared experts are added once.  What the experts held
+    elsewhere would add is left out.
 
-    Aux terms, over the whole batch as one group and all ``n_routed`` gates:
+    Aux terms, over the whole batch as one group and all ``n_routed`` gates
+    (a sigmoid router's gates are each token's scores over their sum):
     ``lb_loss = n_routed * sum_e mean_t(gate_te) * (tokens choosing e) / T``
     (Switch) and ``z_loss = mean_t logsumexp(logits_t)^2``.  Metrics (no
     gradient): ``moe_held_rows``, the pairs the held experts computed, and
@@ -158,10 +179,19 @@ def moe_dropless(x: torch.Tensor, p: Params, *, n_routed: int, n_shared: int, to
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     with span("model.moe.route"):
         logits = flat.to(torch.float32) @ p["router"].to(torch.float32)     # (T, E)
-        gates = torch.softmax(logits, dim=-1)
-        weights, experts = _top_k(gates, top_k)                             # (T, k)
-        if norm_topk:
-            weights = _normalized(weights)
+        if score == "sigmoid":
+            scores = torch.sigmoid(logits)
+            weights, experts = _top_k(scores, top_k)                        # (T, k)
+            if norm_topk:
+                weights = weights / (weights.sum(dim=-1, keepdim=True) + 1e-20)
+            gates = scores / scores.sum(dim=-1, keepdim=True)
+        else:
+            gates = torch.softmax(logits, dim=-1)
+            weights, experts = _top_k(gates, top_k)                         # (T, k)
+            if norm_topk:
+                weights = _normalized(weights)
+        if routed_scale != 1.0:
+            weights = weights * routed_scale
         # the pairs of the held experts first, by expert; the others after
         local = experts.reshape(-1) - first_held
         local = torch.where((local >= 0) & (local < held), local, held)
@@ -174,13 +204,17 @@ def moe_dropless(x: torch.Tensor, p: Params, *, n_routed: int, n_shared: int, to
     with span("model.moe.experts"):
         # rows past the last offset are not computed: masked on both sides
         e = p["experts"]
-        h = torch.nn.functional.silu(_grouped(rows, e["wg"], offs)) * _grouped(rows, e["wi"], offs)
+        if act == "relu2":
+            h = relu2(_grouped(rows, e["wi"], offs))
+        else:
+            h = torch.nn.functional.silu(_grouped(rows, e["wg"], offs)) \
+                * _grouped(rows, e["wi"], offs)
         y = torch.where(valid, _grouped(h, e["wo"], offs), zero)
         w = weights.reshape(-1)[order].to(x.dtype)
         pairs = torch.empty_like(y).index_copy_(0, order, y * w[:, None])   # (token, choice)
         out = pairs.reshape(T, top_k, d).sum(dim=1).reshape(B, S, d)
     if n_shared:
-        out = out + swiglu(x, p["shared"])
+        out = out + (relu2_mlp if act == "relu2" else swiglu)(x, p["shared"])
 
     counts = _one_hot(experts, n_routed).sum(dim=1)                         # (T, E) 0/1
     lb = n_routed * torch.sum(gates.mean(dim=0) * counts.mean(dim=0))

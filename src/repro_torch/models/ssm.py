@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, dense, dense_init
+from repro_torch.trace import span
 
 
 @dataclasses.dataclass
@@ -150,26 +151,42 @@ def _project(u, p):
     return z, xbc, dt
 
 
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, g: torch.Tensor, n_groups: int,
+                gate_first: bool, dtype) -> torch.Tensor:
+    """The mixer's gated RMSNorm (eps 1e-6) of y (..., d_inner) by the gate
+    z, in ``dtype``: norm before gate, ``(RMS(y) * g) * silu(z)`` over the
+    whole width; or with ``gate_first`` the published Mamba2 norm, ``g *
+    RMS(y * silu(z))`` over each of ``n_groups`` groups, in float32."""
+    if not gate_first:
+        yf = y.to(torch.float32)
+        yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
+        return (yf * g).to(dtype) * F.silu(z)
+    yf = y.to(torch.float32) * F.silu(z.to(torch.float32))
+    yg = yf.reshape(*yf.shape[:-1], n_groups, yf.shape[-1] // n_groups)
+    yg = yg * torch.rsqrt(torch.mean(yg * yg, dim=-1, keepdim=True) + 1e-6)
+    return (yg.reshape(yf.shape) * g).to(dtype)
+
+
 def mamba_forward(u: torch.Tensor, p: Params, *, d_inner: int, d_state: int,
                   n_heads: int, n_groups: int = 1, chunk: int = 128,
-                  h0: Optional[torch.Tensor] = None, return_state: bool = False):
+                  h0: Optional[torch.Tensor] = None, return_state: bool = False,
+                  gate_first: bool = False):
     """u (B, S, d) -> (B, S, d).  The Mamba2 mixer: proj -> conv -> SSD ->
-    gated RMSNorm -> out."""
-    B_, S, _ = u.shape
-    P = d_inner // n_heads
-    z, xbc, dt_raw = _project(u, p)
-    xbc = _depthwise_conv(xbc, p["conv_w"], p["conv_b"])
-    x = xbc[..., :d_inner].reshape(B_, S, n_heads, P)
-    Bm = xbc[..., d_inner: d_inner + n_groups * d_state].reshape(B_, S, n_groups, d_state)
-    Cm = xbc[..., d_inner + n_groups * d_state:].reshape(B_, S, n_groups, d_state)
-    dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"]).to(u.dtype)
-    y, h_fin = ssd_chunked(x, dt, p["A_log"], Bm, Cm, p["D"], chunk=chunk, h0=h0)
-    y = y.reshape(B_, S, d_inner)
-    # gated RMSNorm (Mamba2 norm-before-gate)
-    yf = y.to(torch.float32)
-    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + 1e-6)
-    y = (yf * p["norm_g"]).to(u.dtype) * F.silu(z)
-    out = dense(y, p["out_proj"])
+    gated RMSNorm (:func:`_gated_norm`) -> out, inside the span
+    ``model.ssm``."""
+    with span("model.ssm"):
+        B_, S, _ = u.shape
+        P = d_inner // n_heads
+        z, xbc, dt_raw = _project(u, p)
+        xbc = _depthwise_conv(xbc, p["conv_w"], p["conv_b"])
+        x = xbc[..., :d_inner].reshape(B_, S, n_heads, P)
+        Bm = xbc[..., d_inner: d_inner + n_groups * d_state].reshape(B_, S, n_groups, d_state)
+        Cm = xbc[..., d_inner + n_groups * d_state:].reshape(B_, S, n_groups, d_state)
+        dt = F.softplus(dt_raw.to(torch.float32) + p["dt_bias"]).to(u.dtype)
+        y, h_fin = ssd_chunked(x, dt, p["A_log"], Bm, Cm, p["D"], chunk=chunk, h0=h0)
+        y = _gated_norm(y.reshape(B_, S, d_inner), z, p["norm_g"], n_groups, gate_first,
+                        u.dtype)
+        out = dense(y, p["out_proj"])
     if return_state:
         return out, h_fin
     return out
@@ -188,7 +205,8 @@ def mamba_init_cache(B: int, *, d_inner: int, d_state: int, n_heads: int,
 
 
 def mamba_decode(u: torch.Tensor, cache: SSMCache, p: Params, *, d_inner: int, d_state: int,
-                 n_heads: int, n_groups: int = 1) -> Tuple[torch.Tensor, SSMCache]:
+                 n_heads: int, n_groups: int = 1,
+                 gate_first: bool = False) -> Tuple[torch.Tensor, SSMCache]:
     """One-token recurrent step, u (B, 1, d); writes one layer's state (B,
     H, P, N) and conv tail (B, K-1, D) in place and returns the output and
     the cache with the position advanced.  As in JAX, the float32 conv tail
@@ -215,9 +233,7 @@ def mamba_decode(u: torch.Tensor, cache: SSMCache, p: Params, *, d_inner: int, d
     h = h_cache * a[..., None, None] + torch.einsum(
         "bhn,bhp,bh->bhpn", Bh, x.to(torch.float32), dt)
     y = torch.einsum("bhn,bhpn->bhp", Ch, h) + x.to(torch.float32) * p["D"][None, :, None]
-    y = y.reshape(B_, d_inner)
-    y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
-    y = (y * p["norm_g"]).to(u.dtype) * F.silu(z)
+    y = _gated_norm(y.reshape(B_, d_inner), z, p["norm_g"], n_groups, gate_first, u.dtype)
     out = dense(y[:, None], p["out_proj"])
     h_cache.copy_(h)
     conv_cache.copy_(hist[:, 1:].to(conv_cache.dtype))

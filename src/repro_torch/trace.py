@@ -2,7 +2,8 @@
 
 ``span(name)`` marks where a layer of the step does its work: the data
 pipeline, the model's forward and backward, inside the forward latent
-attention (MLA) and the dropless MoE's routing and held experts, the
+attention (MLA), the dropless MoE's routing and held experts and each
+Mamba2 mixer, the
 optimizer, the gossip rounds (mix, encode, decode), each transport call and
 the step's metrics.
 Tracing is off by default, and then a span costs one read of a module flag
@@ -32,7 +33,7 @@ import torch
 TRANSPORT_LABELS = ("wire", "dense", "resync", "allreduce", "metric", "checkpoint")
 NAMES = ("data.batch", "step", "model.forward", "model.backward", "optim.update",
          "gossip.mix", "gossip.encode", "gossip.decode", "step.metrics", "model.mla",
-         "model.moe.route", "model.moe.experts") + tuple(
+         "model.moe.route", "model.moe.experts", "model.ssm") + tuple(
     f"transport.{label}" for label in TRANSPORT_LABELS)
 
 Span = Tuple[str, Optional[int], Optional[int], int, int]

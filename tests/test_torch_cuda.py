@@ -7,7 +7,8 @@ bits); the dryrun's
 executed smoke on the card; the
 step analyzer's grid on the card (``repro_torch.analysis.step_checks``); a
 step of the small DeepSeek-V2-Lite cell (latent attention, dropless expert
-share) with no host read.
+share) with no host read; Nemotron 3 Nano at its published widths against
+the benchmark's reference, with no host read.
 
     python -m pytest -m cuda tests/test_torch_cuda.py     # on a machine with an H100
 
@@ -1128,3 +1129,61 @@ def test_mla_moe_step_on_card_reads_nothing_on_the_host(cuda, tmp_path):
     torch.cuda.synchronize()
     assert watch.host_reads == [] and watch.f64_ops == []
     assert math.isfinite(float(met["loss"])) and float(met["moe_held_rows"]) > 0
+
+
+# ------------------------------------- Nemotron-H: Mamba2, sigmoid relu^2 experts, NoPE
+
+NEMOTRON_CELL = "nemotron-3-nano-l7e8.dcd-q4.ring4.s4096"
+
+
+def test_nemotron_h_at_published_widths_matches_the_reference_on_card(cuda):
+    """One node of the benchmark's Nemotron 3 Nano configuration (layers
+    ``MEMEM*E`` at d_model 2688, 8 of 128 experts held, 16,384 ids) on two
+    sequences of 512: the program's bf16 loss and gradient against the
+    reference's (float32, TF32 off), the loss within 2e-3 and every leaf's
+    gradient norm, by the harness's gap (``bench.compare``), within 3e-2
+    (the cell's own limits are tighter: they hold three steps over four
+    nodes of 4,096 positions, which average the rounding out).  The
+    program's forward and backward under ``StepWatch``: no host read of a
+    card tensor and no float64, the expert layers' grouped products
+    included."""
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import leaf_items
+
+    from bench import cells, compare, harness, weights
+    from bench.reference import model as ref
+
+    cell = cells.find(pathlib.Path(__file__).resolve().parents[1], NEMOTRON_CELL)
+    cfg = cell.config
+    params = weights.make(cfg, 2 ** 31 + 5, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    tokens, labels = (torch.randint(0, cfg["vocab"], (2, 512), generator=gen, device=cuda)
+                      for _ in range(2))
+    items = leaf_items(params)
+    for _, leaf in items:
+        leaf.requires_grad_(True)
+    model = build_model(harness.arch_config(cell))
+    model.loss(params, {"tokens": tokens, "labels": labels})[0].backward()   # warm up
+    for _, leaf in items:
+        leaf.grad = None
+    watch = sc.StepWatch(cuda)
+    with watch:
+        loss, met = model.loss(params, {"tokens": tokens, "labels": labels})
+        loss.backward()
+    torch.cuda.synchronize()
+    assert watch.host_reads == [] and watch.f64_ops == []
+    assert float(met["moe_held_rows"]) > 0
+    got = {p: float(leaf.grad.norm()) for p, leaf in items}
+    for _, leaf in items:
+        leaf.grad = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want_loss = ref.loss(cfg, params, tokens, labels)
+    want_loss.backward()
+    want = {p: float(leaf.grad.norm()) for p, leaf in items}
+    gap = abs(float(loss) - float(want_loss)) / float(want_loss)
+    gaps = compare.leaf_gaps(got, want)
+    print(f"nemotron-h on card: loss gap {gap:.3e}, largest gradient gap "
+          f"{max(gaps.values()):.3e} ({max(gaps, key=gaps.get)})")
+    assert gap <= 2e-3
+    assert max(gaps.values()) <= 3e-2, sorted(gaps.items(), key=lambda kv: -kv[1])[:3]

@@ -105,16 +105,23 @@ def loss_and_grads(arch: str, S: int = 32):
 
 
 # the port's spec options that JAX's specs lack, at the defaults that keep
-# JAX's behaviour (capacity routing over every expert, normalized weights;
-# plain rope, no latent norm)
-PORT_ONLY = {"moe": {"norm_topk": True, "first_held": 0, "n_held": None},
-             "mla": {"latent_norm": False, "yarn": ()}}
+# JAX's behaviour (capacity routing over every expert, normalized softmax
+# weights, SwiGLU experts; plain rope, no latent norm; the SSM's norm before
+# its gate)
+PORT_ONLY = {"moe": {"norm_topk": True, "first_held": 0, "n_held": None, "score": "softmax",
+                     "routed_scale": 1.0, "act": "swiglu"},
+             "mla": {"latent_norm": False, "yarn": ()},
+             "ssm": {"gate_first": False}}
+# the port's own config fields, at the defaults that keep JAX's behaviour
+# (no layer pattern, rope on every attention layer)
+PORT_ONLY_FIELDS = {"layer_pattern": "", "rope": True}
 
 
 def _jax_fields(t: dict, j: dict) -> dict:
-    """``t`` (the port's config as a dict) with each spec cut to the fields
-    of JAX's, after checking the port's own fields hold their defaults."""
-    out = dict(t)
+    """``t`` (the port's config as a dict) cut to the fields of JAX's, each
+    spec too, after checking the port's own fields hold their defaults."""
+    assert {k: t[k] for k in PORT_ONLY_FIELDS} == PORT_ONLY_FIELDS
+    out = {k: v for k, v in t.items() if k not in PORT_ONLY_FIELDS}
     for spec, defaults in PORT_ONLY.items():
         if t[spec] is not None:
             assert {k: t[spec][k] for k in defaults} == defaults, spec

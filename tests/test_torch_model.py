@@ -45,8 +45,13 @@ def setup():
 def test_config_copy_matches_jax():
     for make in (lambda c: c, lambda c: c.reduced()):
         j, t = make(jget_config("granite-3-2b")), make(tget_config("granite-3-2b"))
-        for f in dataclasses.fields(t):
+        for f in dataclasses.fields(j):
             assert getattr(t, f.name) == getattr(j, f.name), f.name
+        # the port's own fields (a layer pattern, attention without rope) at
+        # the defaults that keep JAX's behaviour
+        assert {f.name for f in dataclasses.fields(t)} - {f.name for f in dataclasses.fields(j)} \
+            == {"layer_pattern", "rope"}
+        assert (t.layer_pattern, t.rope) == ("", True)
         assert (t.vocab_padded, t.hd) == (j.vocab_padded, j.hd)
 
 
